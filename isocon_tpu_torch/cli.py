@@ -1,27 +1,37 @@
-"""Command-line entry point of the port: the ``get_candidates`` subcommand of
-the reference's ``IsoCon`` script (``IsoCon:183-250``), same flags and
-defaults, plus ``--device {cuda,cpu}``.
+"""Command-line entry point of the port: the ``pipeline``,
+``get_candidates`` and ``stat_filter`` subcommands of the reference's
+``IsoCon`` script (``IsoCon:183-250``), same flags and defaults, plus
+``--device {cuda,cpu}``.
 
 The engine runs on CUDA unless ``--device cpu`` is given; without a card it
-raises instead of falling back.  ``pipeline`` and ``stat_filter`` are not
-ported yet (ROADMAP.md, queue A item 8).
+raises instead of falling back.
 
-Usage: python -m isocon_tpu_torch.cli get_candidates -fl_reads READS.fa
-       -outfolder OUT [--device cuda|cpu]
+Usage: python -m isocon_tpu_torch.cli pipeline -fl_reads READS.fa
+       -outfolder OUT [--ccs CCS.bam] [--device cuda|cpu]
+       python -m isocon_tpu_torch.cli get_candidates -fl_reads READS.fa
+       -outfolder OUT
+       python -m isocon_tpu_torch.cli stat_filter -fl_reads READS.fa
+       -candidates CANDIDATES.fa -outfolder OUT
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import os
+import re
 import shutil
 import sys
 from time import time
 
-from .io.output import devlog, logger
+from torch.profiler import record_function
+
+from .io import read_fasta, read_fastx
+from .io.output import devlog, logger, print_candidates
+from .ops._build import LAUNCHES
 from .ops.engine import PairEngine
 from .params import Params
 from .pipeline.candidates import find_candidate_transcripts
+from .pipeline.stat_filter import stat_filter_candidates
 
 KEEP_FILES = {
     "logfile.txt",
@@ -81,7 +91,51 @@ def maybe_profile(params):
     logger("torch profiler trace written to {0}".format(path), params.logfile)
 
 
-def run_get_candidates(params) -> None:
+def run_pipeline(params):
+    """Phase 1 then phase 2 on one engine.  Returns (engine, a copy of the
+    engine's counters as they stood at the end of phase 1, with the kernel
+    launch counts at that moment under ``"launches"``)."""
+    total_start = time()
+    initialize_logger(params)
+    params.read_file = params.fl_reads
+    engine = make_engine(params)
+
+    with maybe_profile(params):
+        t0 = time()
+        # the two spans mark the phases in a --profile trace
+        with record_function("isocon_phase1"):
+            candidate_file, read_partition, to_realign = (
+                find_candidate_transcripts(params.read_file, params, engine))
+        logger(
+            "TIME ELAPSED FOR FINDING CANDIDATES WITH nearest_neighborS:{0}".format(
+                time() - t0
+            ),
+            params.logfile,
+        )
+        logger(engine.stats_line(), params.logfile)
+        devlog(params, "phase1 " + engine.stats_line())
+        phase1_counters = dict(engine.counters, launches=dict(LAUNCHES))
+        t1 = time()
+        with record_function("isocon_phase2"):
+            stat_filter_candidates(
+                params.read_file, candidate_file, read_partition, to_realign,
+                params, engine,
+            )
+        logger(
+            "TIME ELAPSED FOR STATISTICAL TEST OF CANDIDATES:{0}".format(
+                time() - t1),
+            params.logfile,
+        )
+        logger(engine.stats_line(), params.logfile)
+        devlog(params, "phase2 " + engine.stats_line())
+    if params.cleanup:
+        clean_dir(params)
+    logger("TOTAL TIME ELAPSED FOR IsoCon:{0}".format(time() - total_start),
+           params.logfile)
+    return engine, phase1_counters
+
+
+def run_get_candidates(params):
     total_start = time()
     initialize_logger(params)
     params.read_file = params.fl_reads
@@ -101,14 +155,52 @@ def run_get_candidates(params) -> None:
     return engine
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        "isocon_tpu_torch",
-        description="PyTorch/CUDA consensus/isoform reconstruction from long "
-        "noisy amplicon reads: phase 1 (get_candidates).",
-    )
-    sub = parser.add_subparsers(dest="which")
-    p = sub.add_parser("get_candidates")
+def run_stat_filter(params):
+    """``IsoCon:85-130``: user-supplied candidates are pre-filtered on the
+    ``support_(\\d+)`` tag, everything is realigned from scratch."""
+    total_start = time()
+    initialize_logger(params)
+    engine = make_engine(params)
+    all_candidates = {acc: seq for acc, seq in read_fasta(params.candidates)}
+    pre_path = os.path.join(params.outfolder, "preprocessed_candidates.fa")
+    with open(pre_path, "w") as fh:
+        for acc, seq in all_candidates.items():
+            m = re.search(r"support_(\d+)", acc)
+            if m and int(m.group(1)) < params.min_candidate_support:
+                continue
+            fh.write(">{0}\n{1}\n".format(acc, seq))
+    params.candidates = pre_path
+
+    if os.stat(params.candidates).st_size == 0:
+        out = os.path.join(params.outfolder, "final_candidates.fa")
+        print_candidates(out, {}, {}, {}, {}, final=True,
+                         reads_to_consensus_tsv=os.path.join(
+                             params.outfolder, "cluster_info.tsv"))
+        print("Candidate file is empty!")
+        sys.exit(0)
+
+    if params.is_fastq:
+        to_realign = {acc: seq for acc, seq, _q in read_fastx(params.fl_reads)}
+    else:
+        to_realign = {acc: seq for acc, seq in read_fasta(params.fl_reads)}
+    read_partition = {acc: {} for acc, _ in read_fasta(params.candidates)}
+    # phase 2 interns each read + candidate once per realignment round
+    engine.reserve_pool_rows(2 * len(set(to_realign.values())))
+    with maybe_profile(params):
+        stat_filter_candidates(
+            params.fl_reads, params.candidates, read_partition, to_realign,
+            params, engine,
+        )
+    logger(engine.stats_line(), params.logfile)
+    devlog(params, "stat_filter " + engine.stats_line())
+    if params.cleanup:
+        clean_dir(params)
+    logger("TOTAL TIME ELAPSED FOR STAT_FILTER:{0}".format(time() - total_start),
+           params.logfile)
+    return engine
+
+
+def _add_common(p, with_stats: bool) -> None:
     p.add_argument("-fl_reads", required=True, type=str)
     p.add_argument("-outfolder", required=True, type=str)
     p.add_argument("--nr_cores", type=int, default=16)
@@ -129,10 +221,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="record a torch.profiler trace of the run into "
                         "<outfolder>/torch_trace.json")
-    p.add_argument("--prefilter_candidates", action="store_true")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the DP kernels run (default cuda; cpu runs "
                         "their plain PyTorch versions)")
+    if with_stats:
+        p.add_argument("--ccs", type=str)
+        p.add_argument("--p_value_threshold", type=float, default=0.01)
+        p.add_argument("--min_test_ratio", type=int, default=5)
+        p.add_argument("--max_phred_q_trusted", type=int, default=43)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        "isocon_tpu_torch",
+        description="PyTorch/CUDA consensus/isoform reconstruction from long "
+        "noisy amplicon reads.",
+    )
+    sub = parser.add_subparsers(dest="which")
+
+    pipe = sub.add_parser("pipeline")
+    _add_common(pipe, with_stats=True)
+    pipe.add_argument("--prefilter_candidates", action="store_true")
+
+    getc = sub.add_parser("get_candidates")
+    _add_common(getc, with_stats=False)
+    getc.add_argument("--prefilter_candidates", action="store_true")
+
+    statf = sub.add_parser("stat_filter")
+    statf.add_argument("-candidates", required=True, type=str)
+    _add_common(statf, with_stats=True)
     return parser
 
 
@@ -160,7 +277,9 @@ def main(argv=None):
     fields = {k: v for k, v in vars(args).items() if k != "which"}
     params = Params(**fields, is_fastq=is_fastq)
     params.ensure_outfolder()
-    return run_get_candidates(params)
+    run = {"pipeline": run_pipeline, "get_candidates": run_get_candidates,
+           "stat_filter": run_stat_filter}[args.which]
+    return run(params)
 
 
 if __name__ == "__main__":

@@ -27,13 +27,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 SOURCES = ("myers_ed", "affine_sg")
 
-LAUNCHES: Dict[str, int] = {"myers_ed": 0, "affine_fwd": 0,
+LAUNCHES: Dict[str, int] = {"myers_ed": 0, "myers_hw": 0, "affine_fwd": 0,
                             "affine_walk": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "isocon_myers_ed": [_P] * 7 + [_I] * 4 + [_P],
+    "isocon_myers_hw": [_P] * 8 + [_I] * 4 + [_P],
     "isocon_affine_fwd": [_P] * 13 + [_I] * 4 + [_P],
     "isocon_affine_walk": [_P] * 7 + [_I] * 4 + [_P],
 }

@@ -4,9 +4,10 @@
 Sequences are interned once into a device-resident pool per padded length
 (a uint8 [R, L] tensor, its lengths and its Peq planes); batches then
 carry only int32 row indices.  Edit distances run the banded Myers kernel
-(K1) and certify each result against its window; uncertified pairs
-escalate to wider windows (7, 9, 17, 33 words for bands 128 .. 1024) and
-past that to the full-width window, which is exact.  Alignments run the
+(K1, or K2 in HW / infix mode) and certify each result against its
+window; uncertified pairs escalate to wider windows (7, 9, 17, 33 words
+for bands 128 .. 1024) and past that to the full-width window, which is
+exact.  Alignments run the
 affine forward (K3) and walk (K4) kernels in a band chosen from the edit
 distance and double the band on overflow.
 
@@ -25,7 +26,8 @@ from . import oracle
 from .affine import BandOverflow, ops_to_alignment_counts
 from .affine_cuda import fetch, sg_align_pool
 from .encode import encode_seq
-from .myers import myers_certifies, myers_ed_pool, peq_table
+from .myers import (myers_certifies, myers_certifies_hw, myers_ed_pool,
+                    myers_hw_pool, peq_table)
 
 # Band width -> Myers window words (certification radius 32*(win//2));
 # wider bands run the full-width window
@@ -176,6 +178,9 @@ class PairEngine:
             "ed_pairs_full_window": 0,
             # alignments re-run in a doubled band after a band overflow
             "align_overflows": 0,
+            # pairs under the HW prefilter's cutoff that went to the host
+            # traceback of the ends-ignored candidate graph, and its time
+            "hw_survivors": 0, "hw_traceback_seconds": 0.0,
         }
 
     def stats_line(self) -> str:
@@ -297,12 +302,10 @@ class PairEngine:
         """Exact edit distances for a list of string pairs.
 
         k_cap[i], when given, reports pair i as -1 once it is certain that
-        ed > k_cap[i] (edlib's ``k`` contract).  Returns (ed int32,
-        end_j int32); end_j is len(b) for NW pairs."""
-        if hw_mode:
-            raise NotImplementedError(
-                "HW-mode (infix) Myers is kernel K2, still to be ported "
-                "(ROADMAP.md, queue B)")
+        ed > k_cap[i] (edlib's ``k`` contract).  hw_mode: infix distance
+        of a inside b (free target start and end).  Returns (ed int32,
+        end_j int32); end_j is len(b) for NW pairs and the exclusive end
+        of the target span in hw_mode (meaningful where ed >= 0)."""
         n_pairs = len(pairs)
         ed_out = np.full(n_pairs, -1, dtype=np.int32)
         ej_out = np.zeros(n_pairs, dtype=np.int32)
@@ -321,12 +324,20 @@ class PairEngine:
                              count=n_pairs)
             lb = np.fromiter((len(p[1]) for p in pairs), dtype=np.int64,
                              count=n_pairs)
-        diff_skip = np.abs(la - lb) > caps     # ed >= |len diff| > cap
+        if hw_mode:
+            diff_skip = np.zeros(n_pairs, dtype=bool)
+        else:
+            diff_skip = np.abs(la - lb) > caps  # ed >= |len diff| > cap
         empty = ((la == 0) | (lb == 0)) & ~diff_skip
         for i in np.flatnonzero(empty):
             d = int(max(la[i], lb[i]))
             ed_out[i] = d if d <= caps[i] else -1
-            ej_out[i] = int(lb[i])
+            ej_out[i] = 0 if hw_mode else int(lb[i])
+            if hw_mode and la[i] == 0:
+                ed_out[i] = 0       # an empty query fits an empty span
+        kernel = myers_hw_pool if hw_mode else myers_ed_pool
+        certifies = myers_certifies_hw if hw_mode else myers_certifies
+        floor_of = self._myers_floor_hw if hw_mode else self._myers_floor
         rest = np.flatnonzero(~(diff_skip | empty))
         Wp = W0
         while rest.size:
@@ -345,25 +356,28 @@ class PairEngine:
                     sl = slice(s, s + ED_BATCH)
                     ia_t = torch.from_numpy(ia_all[sl]).to(self.device)
                     ib_t = torch.from_numpy(ib_all[sl]).to(self.device)
-                    ed = myers_ed_pool(mat, plen, peq, ia_t, ib_t, L=L,
-                                       win=win)
-                    launched.append((idxs[sl], ed))
-            for chunk, ed_t in launched:
-                ed = ed_t.cpu().numpy()
+                    res = kernel(mat, plen, peq, ia_t, ib_t, L=L, win=win)
+                    launched.append((idxs[sl], res))
+            for chunk, res in launched:
+                if hw_mode:
+                    ed, ej = (x.cpu().numpy() for x in res)
+                else:
+                    ed = res.cpu().numpy()
+                    ej = lb[chunk].astype(np.int32)
                 if win is None:
                     self.counters["ed_pairs_full_window"] += len(chunk)
                     cert = np.ones(len(chunk), dtype=bool)
                 else:
-                    cert = myers_certifies(ed, la[chunk], lb[chunk], win=win)
+                    cert = certifies(ed, la[chunk], lb[chunk], win=win)
                 ci = chunk[cert]
                 d = ed[cert].astype(np.int64)
                 ed_out[ci] = np.where(d <= caps[ci], d, -1).astype(np.int32)
-                ej_out[ci] = lb[ci].astype(np.int32)
+                ej_out[ci] = ej[cert]
                 unc = chunk[~cert]
                 if unc.size:
                     # uncertified => true ed exceeds this window's floor;
                     # give up once that clears the caller's cap
-                    floor = self._myers_floor(la[unc], lb[unc], win)
+                    floor = floor_of(la[unc], lb[unc], win)
                     give_up = floor >= caps[unc]
                     ed_out[unc[give_up]] = -1
                     next_round.append(unc[~give_up])
@@ -382,6 +396,14 @@ class PairEngine:
         margin = 32 * (win // 2)
         delta = np.abs(np.asarray(m, np.int64) - np.asarray(n, np.int64))
         return np.where(delta >= margin, delta - 1, 2 * margin - delta)
+
+    @staticmethod
+    def _myers_floor_hw(n: np.ndarray, m: np.ndarray, win: int) -> np.ndarray:
+        """HW-mode floor: any true distance <= this would have certified
+        under ``myers_certifies_hw``, so uncertified implies ed > floor."""
+        margin = 32 * (win // 2)
+        over = np.maximum(np.asarray(m, np.int64) - np.asarray(n, np.int64), 0)
+        return np.minimum(margin, (margin - over) // 2)
 
     # ------------------------------------------------------------------
     # affine semi-global alignment with traceback

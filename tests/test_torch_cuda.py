@@ -73,6 +73,66 @@ def test_myers_kernel_matches_plain(win):
     assert torch.equal(got, want)
 
 
+def _hw_code_pairs(seed, B, L):
+    """Seeded infix pairs: exact and mutated substrings, queries longer
+    than the target, unrelated pairs and queries of 1-11 codes."""
+    rs = np.random.default_rng(seed)
+    q = np.full((B, L), 6, np.int8)
+    t = np.full((B, L), 6, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        m = int(rs.integers(L // 3, L - 40))
+        tgt = rs.choice(_ALPHA, size=m)
+        mode = b % 5
+        lo, hi = sorted(int(x) for x in rs.integers(0, m, 2))
+        if mode == 0:
+            a = tgt[lo:hi + 1]
+        elif mode == 1:
+            a = tgt[lo:hi + 1].copy()
+            hit = rs.random(a.size) < 0.05
+            a[hit] = rs.choice(_ALPHA, size=int(hit.sum()))
+            a = a[rs.random(a.size) >= 0.03]
+        elif mode == 2:
+            a = np.concatenate([tgt, rs.choice(_ALPHA,
+                                               size=int(rs.integers(1, 40)))])
+        elif mode == 3:
+            a = rs.choice(_ALPHA, size=int(rs.integers(40, L)))
+        else:
+            a = rs.choice(_ALPHA, size=int(rs.integers(1, 12)))
+        if a.size == 0:
+            a = tgt[:5]
+        q[b, :a.size] = a
+        t[b, :m] = tgt
+        ql[b], tl[b] = a.size, m
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("win", [7, 9, 17, 33, None])
+def test_myers_hw_kernel_matches_plain(win):
+    dev = _card()
+    Lp, B = 1024, 512
+    Lk = Lp if win is None else max(Lp, 32 * win)
+    q, t, ql, tl = _hw_code_pairs(2, B, Lp)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), Lp, dev)
+    peq = tm.peq_table(pool, plen)
+    ia = torch.arange(B, dtype=torch.int32, device=dev)
+    before = dict(_build.LAUNCHES)
+    ed, ej = tm.myers_hw_pool(pool, plen, peq, ia, ia + B, L=Lk, win=win)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["myers_hw"] == before["myers_hw"] + 1
+    assert _build.LAUNCHES["myers_ed"] == before["myers_ed"]
+    n, m = plen[ia.long()], plen[(ia + B).long()]
+    wed, wej = tm.myers_hw_plain(peq[ia.long()], pool[(ia + B).long()], n, m,
+                                 L=Lk, win=Lk // 32 if win is None else win,
+                                 full=win is None)
+    assert torch.equal(ed, wed) and torch.equal(ej, wej)
+    assert bool((n > m).any())
+    if win == 7:        # a short unrelated query: the empty span wins
+        assert bool((ej == 0).any())
+
+
 def _affine_inputs(seed, B, L, dev):
     rs = np.random.default_rng(seed)
     q = np.full((B, L), 6, np.int8)
@@ -128,6 +188,12 @@ def test_engine_on_card_matches_cpu():
     for k_cap in (None, np.full(len(pairs), 50)):
         np.testing.assert_array_equal(gpu.edit_distances(pairs, k_cap)[0],
                                       cpu.edit_distances(pairs, k_cap)[0])
+        infix = [(a[40:160], b) for a, b in pairs]
+        got = gpu.edit_distances(infix, k_cap, hw_mode=True)
+        want = cpu.edit_distances(infix, k_cap, hw_mode=True)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1][want[0] >= 0],
+                                      want[1][want[0] >= 0])
     sub = pairs[::7]
     scores = [(2, -2, 2, 0)] * len(sub)
     assert gpu.align_pairs(sub, scores) == cpu.align_pairs(sub, scores)

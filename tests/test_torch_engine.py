@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from isocon_tpu.ops.engine import PairEngine as JaxEngine
+from isocon_tpu_torch.ops.encode import encode_seq
 from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
+from isocon_tpu_torch.ops.myers import peq_table
 
 
 def _rs(rng, n):
@@ -165,3 +167,50 @@ def test_pool_from_numpy_layout():
     assert mat.dtype == torch.uint8 and lens.dtype == torch.int32
     assert mat.shape == (3, 4)
     np.testing.assert_array_equal(mat.numpy(), flat.reshape(3, 4))
+
+
+def _assert_pool_rows(pool, seqs):
+    """Every given sequence sits in its row with its length and Peq."""
+    mat, lens, peq = pool.tensors()
+    assert mat.shape[0] == lens.shape[0] == peq.shape[0] == pool.n
+    rows = torch.tensor([pool.rows[s] for s in seqs])
+    for s, r in zip(seqs, rows.tolist()):
+        e = encode_seq(s).view(np.uint8)
+        assert int(lens[r]) == len(s)
+        np.testing.assert_array_equal(mat[r, :len(e)].numpy(), e)
+        assert (mat[r, len(e):] == 6).all()
+    assert torch.equal(peq[rows], peq_table(mat[rows], lens[rows]))
+
+
+def test_seq_pool_reserved_beyond_host_cap():
+    """``reserve_pool_rows`` past a pool's starting capacity, then
+    interning in several pushes (one of them past the reserved capacity,
+    so the pool grows): rows, lengths and Peq planes stay right, in a pool
+    made after the call and in one made before it."""
+    rng = random.Random(7)
+    seqs = sorted({_rs(rng, rng.randrange(10, 60)) for _ in range(6000)})
+    eng = PairEngine(device="cpu")
+    early = eng._get_pool(64)           # made before the reservation
+    assert early.mat.shape[0] == 1024
+    eng.reserve_pool_rows(5000)         # stat_filter reserves 2 x the reads
+    eng.reserve_pool_rows(100)          # a smaller request never shrinks it
+    late = eng._get_pool(128)
+    assert late.mat.shape[0] == late.peq.shape[0] == 5000
+    for pool in (early, late):
+        for s in seqs[:3000]:
+            pool.intern(s, encode_seq)
+        _assert_pool_rows(pool, seqs[:3000:97])
+        first = pool.tensors()[0][:3001].clone()
+        for s in seqs[3000:]:           # crosses 1024 x 2^k and 5000 rows
+            pool.intern(s, encode_seq)
+        assert pool.intern(seqs[0], encode_seq) == pool.rows[seqs[0]]
+        _assert_pool_rows(pool, seqs[::97] + seqs[-5:])
+        assert pool.n == len(seqs) + 1 <= pool.mat.shape[0]
+        assert torch.equal(pool.tensors()[0][:3001], first)
+    # through the engine: one call interns every sequence into the
+    # 256-wide pool, past its reserved 5000 rows
+    pairs = [(seqs[i], seqs[i + 1]) for i in range(len(seqs) - 1)]
+    got, _ = eng.edit_distances(pairs)
+    assert eng._get_pool(256).mat.shape[0] == 10000
+    want, _ = JaxEngine().edit_distances(pairs)
+    np.testing.assert_array_equal(got, want)

@@ -1,18 +1,22 @@
-"""Device busy share of the port's phase 1 on one CUDA card.
+"""Device busy share of the port's phase 1, or of its whole pipeline, on
+one CUDA card.
 
 Writes the synthetic workload (``isocon_tpu_torch.workload``), runs
-``get_candidates`` through ``isocon_tpu_torch.cli`` with ``--profile``
-(a ``torch.profiler`` trace of CPU ops and CUDA activity), and summarises
-the trace: wall seconds of the profiled run, seconds in which the card ran
-a kernel, a copy or a fill (union of those intervals), their share of the
-wall, and the device time per kernel name.  Prints one JSON line.
+``get_candidates`` (with ``--pipeline``: ``pipeline``) through
+``isocon_tpu_torch.cli`` with ``--profile`` (a ``torch.profiler`` trace of
+CPU ops and CUDA activity), and summarises the trace: wall seconds of the
+profiled run, seconds in which the card ran a kernel, a copy or a fill
+(union of those intervals), their share of the wall, and the device time
+per kernel name.  With ``--pipeline`` the same figures are also given for
+each phase, cut at the ``isocon_phase1`` / ``isocon_phase2`` spans that
+``cli.run_pipeline`` records.  Prints one JSON line.
 
 With ``--host`` it runs the same command under ``cProfile`` instead (no
 torch profiler) and prints the port's functions with the most cumulative
 host time: where the host, which holds the card idle, spends the run.
 
-Usage: python tools/phase1_profile.py [--host] [N_READS] [WORKDIR]
-       (defaults: 10000 reads, a temporary directory)
+Usage: python tools/phase1_profile.py [--host] [--pipeline] [N_READS]
+       [WORKDIR]   (defaults: 10000 reads, a temporary directory)
 """
 from __future__ import annotations
 
@@ -58,7 +62,8 @@ def main() -> None:
         sys.exit("phase1_profile: no CUDA device")
     argv = sys.argv[1:]
     host = "--host" in argv
-    argv = [a for a in argv if a != "--host"]
+    which = "pipeline" if "--pipeline" in argv else "get_candidates"
+    argv = [a for a in argv if a not in ("--host", "--pipeline")]
     n_reads = int(argv[0]) if argv else 10000
     work = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
     os.makedirs(work, exist_ok=True)
@@ -67,14 +72,16 @@ def main() -> None:
     out = os.path.join(work, "out")
     if host:
         prof = cProfile.Profile()
-        prof.runcall(cli.main, ["get_candidates", "-fl_reads", reads,
+        prof.runcall(cli.main, [which, "-fl_reads", reads,
                                 "-outfolder", out, "--device", "cuda"])
         stats = pstats.Stats(prof)
-        stats.sort_stats("cumulative").print_stats("isocon_tpu_torch", 40)
+        stats.sort_stats("cumulative").print_stats("isocon_tpu_torch", 60)
         return
     t0 = time.perf_counter()
-    engine = cli.main(["get_candidates", "-fl_reads", reads, "-outfolder",
-                       out, "--device", "cuda", "--profile"])
+    engine = cli.main([which, "-fl_reads", reads, "-outfolder", out,
+                       "--device", "cuda", "--profile"])
+    if which == "pipeline":
+        engine = engine[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with open(os.path.join(out, "torch_trace.json")) as fh:
@@ -90,6 +97,15 @@ def main() -> None:
         k[0] += 1
         k[1] += e["dur"] / 1e6
     busy = busy_seconds(dev)
+    phases = {}
+    for e in events:
+        if e.get("name") in ("isocon_phase1", "isocon_phase2"):
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            inside = [d for d in dev if lo <= d["ts"] < hi]
+            b = busy_seconds(inside)
+            phases[e["name"]] = {
+                "span_s": e["dur"] / 1e6, "device_busy_s": b,
+                "device_idle_share": 1.0 - b / (e["dur"] / 1e6)}
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:12]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -98,6 +114,7 @@ def main() -> None:
         "card": smi, "n_reads": n_reads, "wall_s": wall,
         "trace_span_s": span, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / span if span else None,
+        "phases": phases,
         "ed_seconds": engine.counters["ed_seconds"],
         "align_seconds": engine.counters["align_seconds"],
         "device_time_by_name": {k: {"count": c, "s": s}
