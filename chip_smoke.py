@@ -15,7 +15,13 @@ On one NVIDIA GPU (sm_90a) this script
    and the full width on 4096 seeded pairs each, K2's certified entries
    also against the numpy oracle on a sample; K3 + K4 (affine forward +
    traceback walk) at L = 2048, bands 256 and 512, on 512 seeded pairs,
-   some of which overflow;
+   some of which overflow; K5 (banded wavefront ED, NW and HW: distance and
+   end column) at L = 32,768 for bands 128 and 256 (and once more at the
+   engine's chunk of 16,384 pairs in the timing phase) and at L = 2048 for
+   bands 256 and 1024, on seeded pairs that hold uncertified, clamped and
+   out-of-band pairs, queries longer than their target, empty spans and
+   lengths 0 and 1, certified entries also against the numpy oracle on a
+   sample;
 4. runs ``pipeline`` (phase 1, ``get_candidates``, then phase 2,
    ``stat_filter``) through ``isocon_tpu_torch.cli`` on the card on the
    10,000-read workload (``isocon_tpu_torch.workload``), with every kernel
@@ -24,7 +30,10 @@ On one NVIDIA GPU (sm_90a) this script
    ``final_candidates.fa`` and ``cluster_info.tsv`` to the sha256 the JAX
    package gives on the CPU, and the engine's ED and alignment volume at
    the end of each phase and the number of survivors of the HW prefilter
-   to the JAX package's (``isocon_tpu_torch/smoke_expect.json``);
+   to the JAX package's (``isocon_tpu_torch/smoke_expect.json``); then the
+   same for the long-read workload (500 reads of 16.5-20 kb, every pair
+   in the 32,768-wide bucket, where the edit distances run K5), against
+   the ``"long"`` block of the same file;
 5. times each kernel and its plain version with CUDA events at the main
    path's shapes and computes each kernel's bound (bytes over 3.35 TB/s,
    int32 operations over 132 SMs x 64 lanes x the SM clock);
@@ -48,7 +57,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_READS = 10000                 # the workload of phase 4
+N_READS = 10000                 # the 10k-read workload of phase 4
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SMS = 132
@@ -70,6 +79,16 @@ AFFINE_OPS_PER_CELL = 26
 # Walk, per step: loop test 3, (d, o) 2, overflow test 2, lane and
 # diagonal index 4, direction bits 3, state and coordinate update 2.
 WALK_OPS_PER_STEP = 16
+# Wavefront, per DP cell (Wp/2 a diagonal): the recurrence 6 (neighbour
+# minimum, its +1, code compare, diagonal add, minimum, ceiling minimum)
+# and q's pad code past its length 2 (compare, select; the pool rows are
+# already padded with the target's pad code, so t needs none).  Not
+# counted, because the function does not need them in every cell: the
+# grid's boundary (only the first Wp/2 of some 36,500 diagonals can touch
+# it) and any guard of this implementation.  HW adds, per diagonal and not
+# per cell, the strict minimum over the one cell of row n: compare, select.
+WAVEFRONT_OPS_PER_CELL = 8
+WAVEFRONT_HW_OPS_PER_DIAGONAL = 2
 
 T0 = time.perf_counter()
 
@@ -201,6 +220,64 @@ def affine_pairs(np, B, L, seed=2):
         t[b, :o.size] = o
         ql[b] = a.size
         tl[b] = o.size
+    return q, t, ql, tl
+
+
+def _edge_lengths(ql, tl, L):
+    """Lengths 0 and 1 on either side, written over the first pairs."""
+    for b, (n, m) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1), (0, 40),
+                                (40, 0), (1, 90), (L - 1, 1)]):
+        ql[b], tl[b] = n, m
+
+
+def wavefront_long_pairs(np, B, L=32768, seed=4):
+    """K5 pairs (query, target) of 16.5-20 kb in [B, L] planes: noisy copies
+    at 0.4% (certify at band 128) and at 1.5% (clamped), copies without a
+    1,600-base exon on either side (the length difference leaves the band),
+    exact infixes, queries of 1-40 codes that match nothing (code 4: the
+    empty span wins) and lengths 0 and 1."""
+    rs = np.random.default_rng(seed)
+    alpha = np.array([0, 1, 2, 3, 5], np.uint8)
+    q = np.full((B, L), 6, np.uint8)
+    t = np.full((B, L), 6, np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        m = int(rs.integers(16500, 20001))
+        tgt = rs.choice(alpha, size=m, p=[.2499, .2499, .2499, .2499, .0004])
+        kind = b % 6
+        if kind in (0, 1):
+            a = _mutate(rs, np, tgt, 0.004, alpha)
+        elif kind == 2:
+            a = _mutate(rs, np, tgt, 0.015, alpha)
+        elif kind == 3:
+            cut = int(rs.integers(2000, 12000))
+            a = _mutate(rs, np, np.concatenate(
+                [tgt[:cut], tgt[cut + 1600 + b % 2:]]), 0.003, alpha)
+            if b % 4 == 3:
+                a, tgt = tgt, a
+        elif kind == 4:
+            lo = int(rs.integers(0, 60))
+            a = tgt[lo:m - int(rs.integers(0, 60)) - (b % 12 == 4) * 3000]
+        else:
+            a = np.full(int(rs.integers(1, 41)), 4, np.uint8)
+        q[b, :a.size] = a
+        t[b, :tgt.size] = tgt
+        ql[b], tl[b] = a.size, tgt.size
+    _edge_lengths(ql, tl, L)
+    return q, t, ql, tl
+
+
+def wavefront_wide_pairs(np, B, L=2048):
+    """K5 pairs for the wider bands: the K1 and the K2 sets, half each,
+    lengths 0 and 1, and queries of 2-9 codes that match nothing."""
+    a = myers_pairs(np, B // 2, L, seed=5)
+    h = hw_pairs(np, B - B // 2, L, seed=6)
+    q, t, ql, tl = (np.concatenate([x, y]) for x, y in zip(a, h))
+    _edge_lengths(ql, tl, L)
+    for b in range(8, 16):
+        q[b, :b - 6] = 4
+        ql[b] = b - 6
     return q, t, ql, tl
 
 
@@ -351,6 +428,86 @@ def phase_check_affine(torch, np, affine, acu, dev, L=2048, B=512):
     return err3, err4
 
 
+def phase_check_wavefront(torch, np, wavefront, oracle, dev):
+    """K5 against ``banded_ed_plain`` on every entry of (ed, end_j), NW and
+    HW: bands 128 and 256 at L = 32,768 and bands 256 and 1024 at
+    L = 2048."""
+    decode = lambda row, k: "".join("ACGTXN"[c] for c in row[:k])
+    err = 0
+    for Wp, L, B in ((128, 32768, 96), (256, 32768, 24), (256, 2048, 512),
+                     (1024, 2048, 512)):
+        small = Wp <= wavefront.SMALL_WP
+        q, t, ql, tl = (wavefront_long_pairs(np, B, L) if L > 2048
+                        else wavefront_wide_pairs(np, B, L))
+        pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+        plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+        ia = torch.arange(B, dtype=torch.int32, device=dev)
+        ib = ia + B
+        delta = tl.astype(np.int64) - ql
+        o_lo = -(Wp // 2 - 1)
+        for hw_mode in (False, True):
+            mode = "HW" if hw_mode else "NW"
+            t0 = time.perf_counter()
+            got = wavefront.banded_ed_pool(pool, plen, ia, ib, Wp=Wp,
+                                           hw_mode=hw_mode)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = wavefront.banded_ed_plain(
+                pool[:B], pool[B:], plen[:B], plen[B:], Wp=Wp,
+                hw_mode=hw_mode, small=small)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            err = max(err, check_equal("K5 %s Wp=%d" % (mode, Wp), got, want))
+            ed, ej = (x.cpu().numpy() for x in want)
+            cert = wavefront.band_certifies(ed, ql, tl, Wp, hw_mode=hw_mode,
+                                            small=small)
+            has = {
+                "an uncertified pair": (~cert).any(),
+                "a certified pair": cert.any(),
+                "lengths 0 and 1": all(
+                    ((ql == n) & (tl == m)).any() for n, m in
+                    ((0, 0), (0, 1), (1, 0), (1, 1))),
+            }
+            if Wp == 128:
+                has["a clamped result"] = (ed[ql + tl > 1] == 120).any()
+            if hw_mode:
+                has["a query longer than its target"] = (ql > tl + 1).any()
+                has["an empty span"] = ((ej == 0) & (ql > 1)).any()
+            else:
+                has["a length difference above the band"] = (
+                    delta > o_lo + Wp - 1).any()
+                has["a length difference below the band"] = (
+                    delta < o_lo).any()
+            missing = [k for k, v in has.items() if not v]
+            if missing:
+                raise AssertionError("K5 %s Wp=%d check set lacks %s"
+                                     % (mode, Wp, ", ".join(missing)))
+            n_oracle = 0
+            if L <= 2048:       # the oracle holds the whole n x m matrix
+                for i in np.flatnonzero(cert & (ql > 0) & (tl > 0))[
+                        ::max(1, int(cert.sum()) // 16)][:16].tolist():
+                    a, b = decode(q[i], ql[i]), decode(t[i], tl[i])
+                    if hw_mode:
+                        d, _s0, e0, _ops = oracle.edit_distance_hw(a, b)
+                        truth = (d, e0 + 1)
+                    else:
+                        truth = (oracle.edit_distance(a, b), int(tl[i]))
+                    if (int(ed[i]), int(ej[i])) != truth:
+                        raise AssertionError(
+                            "K5 %s Wp=%d pair %d: certified (%d, %d) != "
+                            "oracle %s" % (mode, Wp, i, ed[i], ej[i], truth))
+                    n_oracle += 1
+            log("K5 %s Wp=%-4d L=%d B=%d: (ed, end_j) equal on every entry; "
+                "%d uncertified, %d at the ceiling, %d with the length "
+                "difference outside the band; %d certified entries equal "
+                "the oracle; kernel %.2f s, plain %.1f s"
+                % (mode, Wp, L, B, int((~cert).sum()),
+                   int((ed >= (120 if small else 16000)).sum()),
+                   int(((delta > o_lo + Wp - 1) | (delta < o_lo)).sum()),
+                   n_oracle, t1 - t0, t2 - t1))
+    return err
+
+
 def _sha256(path):
     with open(path, "rb") as fh:
         data = fh.read()
@@ -360,21 +517,30 @@ def _sha256(path):
 VOLUME = ("ed_pairs", "ed_calls", "align_pairs", "align_calls")
 
 
-def phase_main_path(torch, _build, dev):
-    """``pipeline`` on the 10,000 reads.  Returns the launches of each
-    kernel over the whole run."""
+def phase_main_path(torch, _build, dev, long_reads=False):
+    """``pipeline`` on the 10,000 reads, or with ``long_reads`` on the
+    500 long reads.  Returns the launches of each kernel over the whole
+    run."""
     from isocon_tpu_torch import cli
-    from isocon_tpu_torch.workload import write_reads
+    from isocon_tpu_torch.workload import write_long_reads, write_reads
 
     with open(os.path.join(ROOT, "isocon_tpu_torch",
                            "smoke_expect.json")) as fh:
         expect = json.load(fh)
-    assert expect["n_reads"] == N_READS
+    if long_reads:
+        expect = expect["long"]
+        label = "long-read pipeline"
+        needed = ("wavefront_ed", "affine_fwd", "affine_walk")
+    else:
+        assert expect["n_reads"] == N_READS
+        label = "10k pipeline"
+        needed = ("myers_ed", "myers_hw", "affine_fwd", "affine_walk")
+    n_reads = expect["n_reads"]
     work = os.path.join(_build.BUILD_DIR, "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     reads = os.path.join(work, "reads.fa")
-    write_reads(reads, N_READS)
+    (write_long_reads if long_reads else write_reads)(reads, n_reads)
     out = os.path.join(work, "out")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -400,8 +566,8 @@ def phase_main_path(torch, _build, dev):
                 phase_secs[1] = float(text.rsplit(":", 1)[1])
             if text.startswith("TIME ELAPSED FOR STATISTICAL TEST"):
                 phase_secs[2] = float(text.rsplit(":", 1)[1])
-    log("pipeline on %d reads (cuda): %.2f s in all; phase 1 %.2f s, phase "
-        "2 %.2f s (logfile.txt)" % (N_READS, secs, phase_secs[1],
+    log("%s on %d reads (cuda): %.2f s in all; phase 1 %.2f s, phase "
+        "2 %.2f s (logfile.txt)" % (label, n_reads, secs, phase_secs[1],
                                     phase_secs[2]))
     log("phase 1: %d ED pairs in %.2f s (%d calls), %d alignments in %.2f s "
         "(%d calls); launches %s"
@@ -418,10 +584,15 @@ def phase_main_path(torch, _build, dev):
            c["align_seconds"] - phase1["align_seconds"],
            c["align_calls"] - phase1["align_calls"], c["hw_survivors"],
            c["hw_traceback_seconds"], json.dumps(launches2)))
-    log("whole run: ed_pairs_full_window %d, align_overflows %d, "
-        "max_memory_allocated %d bytes"
-        % (c["ed_pairs_full_window"], c["align_overflows"],
+    log("whole run: ed_pairs_full_window %d, ed_pairs_wavefront %d (phase 1 "
+        "%d), align_overflows %d, max_memory_allocated %d bytes"
+        % (c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
+           phase1["ed_pairs_wavefront"], c["align_overflows"],
            torch.cuda.max_memory_allocated(dev)))
+    if engine.wavefront_rungs:
+        log("K5 rungs (mode, band: pairs): " + ", ".join(
+            "%s %d: %d" % (mode, Wp, k) for (mode, Wp), k in
+            sorted(engine.wavefront_rungs.items())))
 
     for name in ("candidates_converged", "final_candidates", "cluster_info"):
         fname = name + (".tsv" if name == "cluster_info" else ".fa")
@@ -430,35 +601,42 @@ def phase_main_path(torch, _build, dev):
             fname, data.count(b">") or data.count(b"\n"),
             "rows" if fname.endswith(".tsv") else "candidates", digest))
         if digest != expect[name + "_sha256"]:
-            raise AssertionError("%s sha256 %s != the JAX package's %s"
-                                 % (fname, digest, expect[name + "_sha256"]))
+            raise AssertionError("%s: %s sha256 %s != the JAX package's %s"
+                                 % (label, fname, digest,
+                                    expect[name + "_sha256"]))
     # the same searches, edges and tests make the same engine calls
     for key in VOLUME:
         if phase1[key] != expect[key]:
-            raise AssertionError("phase 1: engine %s %d != the JAX "
-                                 "package's %d" % (key, phase1[key],
+            raise AssertionError("%s, phase 1: engine %s %d != the JAX "
+                                 "package's %d" % (label, key, phase1[key],
                                                    expect[key]))
         if c[key] != expect["end_" + key]:
-            raise AssertionError("whole run: engine %s %d != the JAX "
-                                 "package's %d" % (key, c[key],
+            raise AssertionError("%s, whole run: engine %s %d != the JAX "
+                                 "package's %d" % (label, key, c[key],
                                                    expect["end_" + key]))
     if c["hw_survivors"] != expect["hw_survivors"]:
-        raise AssertionError("%d survivors of the HW prefilter != the JAX "
-                             "package's %d" % (c["hw_survivors"],
-                                               expect["hw_survivors"]))
+        raise AssertionError("%s: %d survivors of the HW prefilter != the "
+                             "JAX package's %d" % (label, c["hw_survivors"],
+                                                   expect["hw_survivors"]))
     log("engine volume equals the JAX package's: phase 1 %s, whole run %s, "
         "%d HW survivors"
         % (json.dumps({k: expect[k] for k in VOLUME}),
            json.dumps({k: expect["end_" + k] for k in VOLUME}),
            expect["hw_survivors"]))
-    for name, k in launches.items():
-        if k <= 0:
-            raise AssertionError("kernel %s was not launched on the main "
-                                 "path" % name)
-    for name in ("myers_ed", "affine_fwd", "affine_walk"):
+    for name in needed:
+        if launches[name] <= 0:
+            raise AssertionError("%s: kernel %s was not launched"
+                                 % (label, name))
+    both = needed if long_reads else ("myers_ed", "affine_fwd", "affine_walk")
+    for name in both:
         if launches1[name] <= 0 or launches2[name] <= 0:
-            raise AssertionError("kernel %s was not launched in both phases"
-                                 % name)
+            raise AssertionError("%s: kernel %s was not launched in both "
+                                 "phases" % (label, name))
+    if long_reads and not (
+            0 < phase1["ed_pairs_wavefront"] < c["ed_pairs_wavefront"]
+            and any(mode == "HW" for mode, _wp in engine.wavefront_rungs)):
+        raise AssertionError("long-read pipeline: the wavefront did not run "
+                             "in both phases and both modes")
     shutil.rmtree(work, ignore_errors=True)
     return launches
 
@@ -476,10 +654,14 @@ def _time(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def phase_timing(torch, np, myers, affine, acu, dev, clock_mhz):
-    """Kernel and plain-version times at the main path's shapes: K1 at
-    win 7 on a 262,144-pair chunk (the engine's ED chunk), K3/K4 at band
-    256 on an 8192-pair batch (the engine's alignment batch), L = 2048."""
+def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
+    """Kernel and plain-version times at the main paths' shapes: K1 and K2
+    at win 7 on a 262,144-pair chunk (the engine's ED chunk), K3/K4 at band
+    256 on an 8192-pair batch (the engine's alignment batch), L = 2048; K5
+    at band 128 on a 16,384-pair chunk (the engine's K5 chunk) of noisy
+    16.5-20 kb copies, L = 32,768, NW and HW."""
+    from isocon_tpu_torch.ops.engine import WAVE_BATCH
+
     int32_rate = SMS * INT32_LANES_PER_SM * clock_mhz * 1e6
     res = {}
 
@@ -562,6 +744,35 @@ def phase_timing(torch, np, myers, affine, acu, dev, clock_mhz):
     res["affine_fwd"] = (ms3, plain3) + res["affine_fwd"][2:]
     res["affine_walk"] = (ms4, plain4) + res["affine_walk"][2:]
 
+    # K5 -------------------------------------------------------------------
+    L, B0, B, Wp = 32768, 96, WAVE_BATCH, 128
+    q, t, ql, tl = wavefront_long_pairs(np, B0, L, seed=7)
+    noisy = np.array([b for b in range(8, B0) if b % 6 < 3])
+    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+    qrow = torch.from_numpy(noisy).to(dev)[
+        torch.arange(B, device=dev) % len(noisy)]
+    trow = qrow + B0
+    n, m = plen[qrow], plen[trow]
+    diagonals = float((n + m - 1).to(torch.float64).sum())
+    nbytes = pool.numel() + B * 4 * 4 + B * 8
+    for hw_mode, name, per_diagonal in (
+            (False, "wavefront_ed", 0),
+            (True, "wavefront_ed (HW)", WAVEFRONT_HW_OPS_PER_DIAGONAL)):
+        k5 = lambda: wavefront.banded_ed_pool(pool, plen, qrow, trow, Wp=Wp,
+                                              hw_mode=hw_mode)
+        k5()
+        ms, got = _time(torch, k5, 3)
+        plain_ms, want = _time(torch, lambda: wavefront.banded_ed_plain(
+            pool[qrow], pool[trow], n, m, Wp=Wp, hw_mode=hw_mode,
+            small=True), 1)
+        # the engine's own chunk shape, held to the plain version too
+        check_equal("K5 %s B=%d" % ("HW" if hw_mode else "NW", B), got, want)
+        ops = diagonals * ((Wp // 2) * WAVEFRONT_OPS_PER_CELL + per_diagonal)
+        res[name] = (ms, plain_ms, nbytes, ops,
+                     "B=%d Wp=%d L=%d" % (B, Wp, L))
+    torch.cuda.empty_cache()
+
     out = {}
     for name, (kms, pms, nbytes, ops, shape) in res.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -569,7 +780,7 @@ def phase_timing(torch, np, myers, affine, acu, dev, clock_mhz):
         out[name] = dict(ms=kms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else
                          "operations", shape=shape)
-        log("%-11s %s: kernel %.3f ms, plain %.1f ms, bound %.3f ms (%s)"
+        log("%-17s %s: kernel %.3f ms, plain %.1f ms, bound %.3f ms (%s)"
             % (name, shape, kms, pms, out[name]["bound_ms"],
                out[name]["bound_by"]))
     return out
@@ -584,6 +795,8 @@ KERNELS = [
      "isocon_tpu/ops/affine_pallas_c.py:544"),
     ("affine_walk", "isocon_tpu_torch/csrc/affine_sg.cu",
      "isocon_tpu/ops/affine_pallas_c.py:606"),
+    ("wavefront_ed", "isocon_tpu_torch/csrc/wavefront_ed.cu",
+     "isocon_tpu/ops/wavefront_pallas.py:178"),
 ]
 
 
@@ -609,7 +822,8 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device; this script runs on the card")
     sys.path.insert(0, ROOT)
     from isocon_tpu_torch import native
-    from isocon_tpu_torch.ops import _build, affine, myers, oracle
+    from isocon_tpu_torch.ops import (_build, affine, myers, oracle,
+                                      wavefront)
     from isocon_tpu_torch.ops import affine_cuda as acu
 
     dev = torch.device("cuda", 0)
@@ -623,11 +837,17 @@ def main() -> None:
     err1 = phase_check_myers(torch, np, myers, dev)
     err2 = phase_check_myers_hw(torch, np, myers, oracle, dev)
     err3, err4 = phase_check_affine(torch, np, affine, acu, dev)
-    _build.reset_launches()   # comparison launches do not count
+    err5 = phase_check_wavefront(torch, np, wavefront, oracle, dev)
     errs = {"myers_ed": err1, "myers_hw": err2, "affine_fwd": err3,
-            "affine_walk": err4}
+            "affine_walk": err4, "wavefront_ed": err5}
+    # each path sets the counts to 0 just before it runs (comparison
+    # launches do not count); K5's count is the long-read run's
     launches = phase_main_path(torch, _build, dev)
-    timing = phase_timing(torch, np, myers, affine, acu, dev, clock_mhz)
+    long_launches = phase_main_path(torch, _build, dev, long_reads=True)
+    launches["wavefront_ed"] = long_launches["wavefront_ed"]
+    log("launches on the long-read run: %s" % json.dumps(long_launches))
+    timing = phase_timing(torch, np, myers, affine, acu, wavefront, dev,
+                          clock_mhz)
 
     kernels = []
     for kname, source, replaces in KERNELS:

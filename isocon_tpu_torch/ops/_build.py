@@ -25,10 +25,10 @@ BUILD_DIR = os.path.join(PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-SOURCES = ("myers_ed", "affine_sg")
+SOURCES = ("myers_ed", "affine_sg", "wavefront_ed")
 
 LAUNCHES: Dict[str, int] = {"myers_ed": 0, "myers_hw": 0, "affine_fwd": 0,
-                            "affine_walk": 0}
+                            "affine_walk": 0, "wavefront_ed": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "isocon_myers_hw": [_P] * 8 + [_I] * 4 + [_P],
     "isocon_affine_fwd": [_P] * 13 + [_I] * 4 + [_P],
     "isocon_affine_walk": [_P] * 7 + [_I] * 4 + [_P],
+    "isocon_wavefront_ed": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

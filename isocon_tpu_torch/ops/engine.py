@@ -7,7 +7,9 @@ carry only int32 row indices.  Edit distances run the banded Myers kernel
 (K1, or K2 in HW / infix mode) and certify each result against its
 window; uncertified pairs escalate to wider windows (7, 9, 17, 33 words
 for bands 128 .. 1024) and past that to the full-width window, which is
-exact.  Alignments run the
+exact.  Pools wider than MYERS_MAX_L (reads longer than 16,384 bases) run
+the banded wavefront kernel (K5) instead, NW and HW, doubling the band from
+128 lanes until the result certifies.  Alignments run the
 affine forward (K3) and walk (K4) kernels in a band chosen from the edit
 distance and double the band on overflow.
 
@@ -28,14 +30,19 @@ from .affine_cuda import fetch, sg_align_pool
 from .encode import encode_seq
 from .myers import (myers_certifies, myers_certifies_hw, myers_ed_pool,
                     myers_hw_pool, peq_table)
+from .wavefront import SMALL_WP, band_certifies, banded_ed_pool
 
 # Band width -> Myers window words (certification radius 32*(win//2));
 # wider bands run the full-width window
 _MYERS_WIN = {128: 7, 256: 9, 512: 17, 1024: 33}
+# Widest pool the Myers kernels take (the full-width window holds 512
+# words); wider pools run the banded wavefront (K5) at every band
+MYERS_MAX_L = 16384
 
 POOL_L_MIN = 256          # smallest padded pool width
 W0 = 128                  # first ED band (Myers window 7)
-ED_BATCH = 262144         # pairs per K1 launch
+ED_BATCH = 262144         # pairs per K1 / K2 launch
+WAVE_BATCH = 16384        # pairs per K5 launch (one block a pair)
 ALIGN_BATCH = 8192        # pairs per K3/K4 launch ...
 ALIGN_SCRATCH_BYTES = 16e9  # ... capped by the K3 direction scratch
 PEQ_CHUNK_ROWS = 8192
@@ -74,11 +81,14 @@ class _SeqPool:
 
     Row 0 is a length-1 sentinel.  New rows collect on the host and reach
     the device in one copy per ``tensors()`` call, with their Peq planes
-    computed there."""
+    computed there.  ``with_peq=False`` (pools the Myers kernels never
+    read) keeps no planes: ``peq`` is an empty tensor."""
 
-    def __init__(self, L: int, device: torch.device, min_rows: int = 0):
+    def __init__(self, L: int, device: torch.device, min_rows: int = 0,
+                 with_peq: bool = True):
         self.L = L
         self.device = device
+        self._peq_words = L // 32 if with_peq else 0
         self.rows: dict = {}
         self.n = 1
         self._dev_rows = 1
@@ -86,7 +96,7 @@ class _SeqPool:
         cap = max(1024, int(min_rows))
         self.mat = torch.full((cap, L), 6, dtype=torch.uint8, device=device)
         self.lens = torch.ones(cap, dtype=torch.int32, device=device)
-        self.peq = torch.zeros((cap, 5, L // 32), dtype=torch.int32,
+        self.peq = torch.zeros((cap, 5, self._peq_words), dtype=torch.int32,
                                device=device)
 
     def intern(self, seq: str, enc) -> int:
@@ -103,7 +113,7 @@ class _SeqPool:
         mat = torch.full((cap, self.L), 6, dtype=torch.uint8,
                          device=self.device)
         lens = torch.ones(cap, dtype=torch.int32, device=self.device)
-        peq = torch.zeros((cap, 5, self.L // 32), dtype=torch.int32,
+        peq = torch.zeros((cap, 5, self._peq_words), dtype=torch.int32,
                           device=self.device)
         mat[:old] = self.mat
         lens[:old] = self.lens
@@ -127,9 +137,10 @@ class _SeqPool:
                 lens[x] = len(e)
             self.mat[r0:r0 + k] = torch.from_numpy(block).to(self.device)
             self.lens[r0:r0 + k] = torch.from_numpy(lens).to(self.device)
-            for s in range(r0, r0 + k, PEQ_CHUNK_ROWS):
-                e = min(s + PEQ_CHUNK_ROWS, r0 + k)
-                self.peq[s:e] = peq_table(self.mat[s:e], self.lens[s:e])
+            if self._peq_words:
+                for s in range(r0, r0 + k, PEQ_CHUNK_ROWS):
+                    e = min(s + PEQ_CHUNK_ROWS, r0 + k)
+                    self.peq[s:e] = peq_table(self.mat[s:e], self.lens[s:e])
             self._pending = []
             self._dev_rows = self.n
         return self.mat[: self.n], self.lens[: self.n], self.peq[: self.n]
@@ -176,6 +187,8 @@ class PairEngine:
             "align_calls": 0, "align_pairs": 0, "align_seconds": 0.0,
             # pairs past the 33-word window, run by the full-width window
             "ed_pairs_full_window": 0,
+            # pairs run by the banded wavefront (pools above MYERS_MAX_L)
+            "ed_pairs_wavefront": 0,
             # alignments re-run in a doubled band after a band overflow
             "align_overflows": 0,
             # pairs under the HW prefilter's cutoff that went to the host
@@ -183,13 +196,16 @@ class PairEngine:
             "hw_survivors": 0, "hw_traceback_seconds": 0.0,
         }
 
+        # (mode, band width) -> pairs the banded wavefront ran there
+        self.wavefront_rungs: dict = {}
+
     def stats_line(self) -> str:
         c = self.counters
         return (
-            "engine: %d EDs in %.1fs (%d calls, %d full-window), "
-            "%d alignments in %.1fs (%d calls)" % (
+            "engine: %d EDs in %.1fs (%d calls, %d full-window, "
+            "%d wavefront), %d alignments in %.1fs (%d calls)" % (
                 c["ed_pairs"], c["ed_seconds"], c["ed_calls"],
-                c["ed_pairs_full_window"],
+                c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
                 c["align_pairs"], c["align_seconds"], c["align_calls"],
             )
         )
@@ -212,8 +228,9 @@ class PairEngine:
     def _get_pool(self, Lb: int) -> _SeqPool:
         pool = self._pools.get(Lb)
         if pool is None:
-            pool = self._pools[Lb] = _SeqPool(Lb, self.device,
-                                              self._pool_reserve)
+            pool = self._pools[Lb] = _SeqPool(
+                Lb, self.device, self._pool_reserve,
+                with_peq=Lb <= MYERS_MAX_L)
         return pool
 
     # ------------------------------------------------------------------
@@ -347,24 +364,40 @@ class PairEngine:
             Lb_arr = _pool_widths(ln)
             launched = []
             for Lb in np.unique(Lb_arr).tolist():
+                wave = Lb > MYERS_MAX_L
+                if wave and Wp > 4 * Lb + 256:
+                    raise RuntimeError("band escalation failed to terminate")
                 idxs = rest[Lb_arr == Lb]
                 pool = self._get_pool(Lb)
                 ia_all, ib_all = self._rows(pool, Lb, pairs, idxs, _idx)
                 mat, plen, peq = pool.tensors()
                 L = Lb if win is None else max(Lb, 32 * win)
-                for s in range(0, len(idxs), ED_BATCH):
-                    sl = slice(s, s + ED_BATCH)
+                step = WAVE_BATCH if wave else ED_BATCH
+                for s in range(0, len(idxs), step):
+                    sl = slice(s, s + step)
                     ia_t = torch.from_numpy(ia_all[sl]).to(self.device)
                     ib_t = torch.from_numpy(ib_all[sl]).to(self.device)
-                    res = kernel(mat, plen, peq, ia_t, ib_t, L=L, win=win)
-                    launched.append((idxs[sl], res))
-            for chunk, res in launched:
-                if hw_mode:
+                    if wave:
+                        res = banded_ed_pool(mat, plen, ia_t, ib_t, Wp=Wp,
+                                             hw_mode=hw_mode)
+                    else:
+                        res = kernel(mat, plen, peq, ia_t, ib_t, L=L, win=win)
+                    launched.append((idxs[sl], res, wave))
+            for chunk, res, wave in launched:
+                if hw_mode or wave:
                     ed, ej = (x.cpu().numpy() for x in res)
                 else:
                     ed = res.cpu().numpy()
                     ej = lb[chunk].astype(np.int32)
-                if win is None:
+                if wave:
+                    self.counters["ed_pairs_wavefront"] += len(chunk)
+                    rung = ("HW" if hw_mode else "NW", Wp)
+                    self.wavefront_rungs[rung] = (
+                        self.wavefront_rungs.get(rung, 0) + len(chunk))
+                    cert = band_certifies(ed, la[chunk], lb[chunk], Wp,
+                                          hw_mode=hw_mode,
+                                          small=Wp <= SMALL_WP)
+                elif win is None:
                     self.counters["ed_pairs_full_window"] += len(chunk)
                     cert = np.ones(len(chunk), dtype=bool)
                 else:
@@ -375,9 +408,13 @@ class PairEngine:
                 ej_out[ci] = ej[cert]
                 unc = chunk[~cert]
                 if unc.size:
-                    # uncertified => true ed exceeds this window's floor;
+                    # uncertified => true ed exceeds this band's floor;
                     # give up once that clears the caller's cap
-                    floor = floor_of(la[unc], lb[unc], win)
+                    if wave:
+                        floor = self._certified_floor(la[unc], lb[unc], Wp,
+                                                      hw_mode)
+                    else:
+                        floor = floor_of(la[unc], lb[unc], win)
                     give_up = floor >= caps[unc]
                     ed_out[unc[give_up]] = -1
                     next_round.append(unc[~give_up])
@@ -404,6 +441,25 @@ class PairEngine:
         margin = 32 * (win // 2)
         over = np.maximum(np.asarray(m, np.int64) - np.asarray(n, np.int64), 0)
         return np.minimum(margin, (margin - over) // 2)
+
+    @staticmethod
+    def _certified_floor(n: np.ndarray, m: np.ndarray, Wp: int,
+                         hw_mode: bool) -> np.ndarray:
+        """Largest v per pair such that any true distance <= v would have
+        been certified by ``band_certifies`` at width Wp, so an uncertified
+        wavefront result implies ed > floor; -1 where the length difference
+        lies outside the band (NW).  The JAX engine's floor, entry for
+        entry: it ignores the small band's ceiling (at Wp = 128 it reaches
+        127 while nothing at or above 120 certifies), so a pair of distance
+        120 .. 127 under a cap up to its floor is given up as -1 there and
+        here alike."""
+        o_lo = -(Wp // 2 - 1)
+        o_hi = o_lo + Wp - 1
+        delta = np.asarray(m, np.int64) - np.asarray(n, np.int64)
+        if hw_mode:
+            return np.minimum(-o_lo, (o_hi - np.maximum(delta, 0)) // 2)
+        return np.where((delta > o_hi) | (delta < o_lo), -1,
+                        np.minimum(2 * o_hi - delta, -2 * o_lo + delta))
 
     # ------------------------------------------------------------------
     # affine semi-global alignment with traceback

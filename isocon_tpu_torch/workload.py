@@ -1,4 +1,5 @@
-"""Deterministic synthetic amplicon reads for the 10k-read phase-1 workload.
+"""Deterministic synthetic amplicon reads: the 10k-read workload and the
+long-read workload (every read longer than 16,384 bases).
 
 A copy of the generator in ``scripts/bench_10k.py`` (that script parses
 ``sys.argv`` when imported, so it is not imported here): one gene family
@@ -6,6 +7,11 @@ of 26 isoforms (13 exon combinations x 2 SNV haplotypes, about
 1.2-1.65 kb each) and reads drawn round-robin from them with 1% noise,
 all from ``random.Random(seed)``.  The first N reads of a larger file are
 the N-read file.
+
+The long-read workload (``write_long_reads``) is one family of 8 isoforms
+(4 exon combinations x 2 SNV haplotypes) of 16.5-20 kb, as long-range PCR
+or full-length viral amplicons give, with HiFi-like 0.2% noise: every pair
+of reads lands in the 32,768-wide bucket.
 """
 from __future__ import annotations
 
@@ -61,4 +67,41 @@ def write_reads(path: str, n_reads: int, seed: int = 123) -> List[str]:
         for i in range(n_reads):
             iso = isoforms[i % len(isoforms)]
             fh.write(">read_%d\n%s\n" % (i, noisy_copy(rng, iso)))
+    return isoforms
+
+
+# the long-read family: 5 exons, 20,000 bases with all of them; dropping
+# exon 1 and / or exon 3 leaves 18,400, 18,100 and 16,500 bases
+LONG_EXON_LENS = (6000, 1600, 5000, 1900, 5500)
+LONG_COMBOS = [(0, 1, 2, 3, 4), (0, 2, 3, 4), (0, 1, 2, 4), (0, 2, 4)]
+LONG_ERROR_RATE = 0.002
+
+
+def make_long_isoforms(rng: random.Random) -> List[str]:
+    """8 isoforms of 16,500-20,000 bases: 4 exon combinations x 2 SNV
+    haplotypes (three substitutions)."""
+    exons = ["".join(rng.choice("ACGT") for _ in range(ln))
+             for ln in LONG_EXON_LENS]
+    isoforms = []
+    for combo in LONG_COMBOS:
+        seq = "".join(exons[e] for e in combo)
+        isoforms.append(seq)
+        bl = list(seq)
+        for frac in (0.2, 0.5, 0.8):
+            p = int(len(bl) * frac)
+            bl[p] = {"A": "C", "C": "G", "G": "T", "T": "A"}[bl[p]]
+        isoforms.append("".join(bl))
+    return isoforms
+
+
+def write_long_reads(path: str, n_reads: int, seed: int = 321) -> List[str]:
+    """Write ``n_reads`` noisy long reads as fasta, drawn round-robin from
+    the 8 long isoforms; returns the isoforms."""
+    rng = random.Random(seed)
+    isoforms = make_long_isoforms(rng)
+    with open(path, "w") as fh:
+        for i in range(n_reads):
+            iso = isoforms[i % len(isoforms)]
+            fh.write(">read_%d\n%s\n" % (
+                i, noisy_copy(rng, iso, LONG_ERROR_RATE)))
     return isoforms

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here is marked ``cuda`` and skips itself without a CUDA device;
-run them on a machine with an sm_90a card and nvcc:
+Every test here is marked ``cuda`` and, but for the build table's test,
+skips itself without a CUDA device; run them on a machine with an sm_90a
+card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_*.py
 
@@ -18,6 +19,7 @@ from isocon_tpu_torch.ops import _build
 from isocon_tpu_torch.ops import affine as ta
 from isocon_tpu_torch.ops import affine_cuda as tac
 from isocon_tpu_torch.ops import myers as tm
+from isocon_tpu_torch.ops import wavefront as tw
 from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +53,27 @@ def _code_pairs(seed, B, L):
         t[b, :o.size] = o
         ql[b], tl[b] = n, o.size
     return q, t, ql, tl
+
+
+def test_build_table_lists_every_kernel():
+    """Needs no card: every source has its file, every C entry point a
+    signature, and every kernel a launch counter."""
+    import os
+
+    assert _build.SOURCES == ("myers_ed", "affine_sg", "wavefront_ed")
+    for name in _build.SOURCES:
+        assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
+    assert set(_build._SIGNATURES) == {
+        "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
+        "isocon_affine_walk", "isocon_wavefront_ed"}
+    assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 16
+    with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
+        assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
+    assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
+                                    "affine_walk", "wavefront_ed"}
+    _build.LAUNCHES["wavefront_ed"] += 1
+    _build.reset_launches()
+    assert not any(_build.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("win", [7, 9, 17, 33, None])
@@ -175,6 +198,101 @@ def test_affine_kernels_match_plain(Wp):
         assert torch.equal(g, w)
     if Wp == 256:
         assert bool(got[6].any())
+
+
+def _wavefront_code_pairs(seed, B, L):
+    """``_code_pairs`` plus what the wavefront's edge rules see: infix
+    pairs, queries far longer than their target, lengths 0 and 1."""
+    q, t, ql, tl = _code_pairs(seed, B, L)
+    hq, ht, hql, htl = _hw_code_pairs(seed + 1, B, L)
+    q, t = np.concatenate([q, hq]), np.concatenate([t, ht])
+    ql, tl = np.concatenate([ql, hql]), np.concatenate([tl, htl])
+    for b, (n, m) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1), (0, 40),
+                                (40, 0), (1, 90), (L, 1)]):
+        ql[b], tl[b] = n, m
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("hw_mode", [False, True], ids=["nw", "hw"])
+@pytest.mark.parametrize("Wp", [128, 256, 1024, 32768, 65536])
+def test_wavefront_kernel_matches_plain(Wp, hw_mode):
+    """K5 against its plain version on every entry, certified or not: the
+    small band, wider bands in shared memory (32768: the 128 KB opt-in) and
+    the device-memory scratch beyond."""
+    dev = _card()
+    Lp, B = (512, 128) if Wp <= 1024 else (128, 24)
+    q, t, ql, tl = _wavefront_code_pairs(4, B, Lp)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), Lp, dev)
+    ia = torch.arange(2 * B, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["wavefront_ed"]
+    ed, ej = tw.banded_ed_pool(pool, plen, ia, ia + 2 * B, Wp=Wp,
+                               hw_mode=hw_mode)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wavefront_ed"] == before + 1
+    n, m = plen[ia.long()], plen[(ia + 2 * B).long()]
+    wed, wej = tw.banded_ed_plain(pool[ia.long()], pool[(ia + 2 * B).long()],
+                                  n, m, Wp=Wp, hw_mode=hw_mode,
+                                  small=Wp <= tw.SMALL_WP)
+    assert torch.equal(ed, wed) and torch.equal(ej, wej)
+    if Wp == 128:
+        cert = tw.band_certifies(ed.cpu().numpy(), ql, tl, Wp,
+                                 hw_mode=hw_mode, small=True)
+        assert (~cert).any() and cert.any()
+        assert bool((ed >= tw.CLAMP8).any())
+
+
+def test_wavefront_scratch_blocks_loop_over_pairs(monkeypatch):
+    """More pairs than scratch rows: each block takes several pairs."""
+    dev = _card()
+    monkeypatch.setattr(tw, "SCRATCH_BLOCKS", 5)
+    q, t, ql, tl = _wavefront_code_pairs(6, 16, 128)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), 128, dev)
+    ia = torch.arange(32, dtype=torch.int32, device=dev)
+    for hw_mode in (False, True):
+        got = tw.banded_ed_pool(pool, plen, ia, ia + 32, Wp=65536,
+                                hw_mode=hw_mode)
+        want = tw.banded_ed_plain(pool[:32], pool[32:], plen[:32], plen[32:],
+                                  Wp=65536, hw_mode=hw_mode)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_wavefront_engine_on_card_matches_cpu(monkeypatch):
+    """The engine's long-bucket route (the constant shrunk) on the card
+    against the CPU, NW and HW, with and without caps."""
+    _card()
+    from isocon_tpu_torch.ops import engine as te
+
+    monkeypatch.setattr(te, "MYERS_MAX_L", 256)
+    rng = random.Random(8)
+    seqs = ["".join(rng.choice("ACGT") for _ in range(rng.randrange(300, 500)))
+            for _ in range(6)]
+    seqs += [s[:200] + s[230:] for s in seqs[:3]]
+    pairs = [(a, b) for a in seqs for b in seqs]
+    cpu = PairEngine(device="cpu")
+    gpu = PairEngine(device="cuda")
+    for k_cap in (None, np.full(len(pairs), 60)):
+        for hw_mode in (False, True):
+            got = gpu.edit_distances(pairs, k_cap, hw_mode=hw_mode)
+            want = cpu.edit_distances(pairs, k_cap, hw_mode=hw_mode)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1][want[0] >= 0],
+                                          want[1][want[0] >= 0])
+    assert gpu.counters["ed_pairs_wavefront"] > 0
+    assert gpu.wavefront_rungs == cpu.wavefront_rungs
+
+
+def test_wavefront_saturated_value_certifies():
+    """A property of the reference that the port keeps: bands above 192
+    lanes saturate at 16,000 and ``band_certifies`` has no test for it, so
+    a true distance above 16,000 comes back as 16,000 once the band is
+    wide enough (here Wp = 16,384)."""
+    _card()
+    gpu = PairEngine(device="cuda")
+    ed, ej = gpu.edit_distances([("A" * 20000, "C" * 20000)])
+    assert (int(ed[0]), int(ej[0])) == (tw.INF, 20000)
+    assert max(Wp for _mode, Wp in gpu.wavefront_rungs) == 16384
 
 
 def test_engine_on_card_matches_cpu():

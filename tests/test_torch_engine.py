@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from isocon_tpu.ops.engine import PairEngine as JaxEngine
+from isocon_tpu_torch.ops import oracle
 from isocon_tpu_torch.ops.encode import encode_seq
 from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
 from isocon_tpu_torch.ops.myers import peq_table
@@ -214,3 +215,159 @@ def test_seq_pool_reserved_beyond_host_cap():
     assert eng._get_pool(256).mat.shape[0] == 10000
     want, _ = JaxEngine().edit_distances(pairs)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the long-bucket route: pools wider than MYERS_MAX_L run the banded
+# wavefront (K5's plain version here) at every band
+# ---------------------------------------------------------------------------
+def _long_bucket_pairs(seed, n=150):
+    """Pairs of 130-250 bases (pool width 256): copies that certify at band
+    128, more divergent copies and copies with a 40-90 base gap (these
+    escalate to 256 and 512), unrelated pairs (these give up under a cap),
+    exact and noisy infixes, and empty sides."""
+    rng = random.Random(seed)
+    pairs = []
+    for i in range(n):
+        a = _rs(rng, rng.randrange(180, 250))
+        kind = i % 6
+        if kind == 0:
+            b = _mut(rng, a, rng.randrange(0, 25))
+        elif kind == 1:
+            b = _mut(rng, a, rng.randrange(50, 90))[:250]
+        elif kind == 2:
+            cut = rng.randrange(20, 80)
+            b = _mut(rng, a[:cut] + a[cut + rng.randrange(40, 90):], 5)
+        elif kind == 3:
+            b = _rs(rng, rng.randrange(130, 170))
+            a = a[:rng.randrange(130, 150)]
+        elif kind == 4:
+            b = (_rs(rng, 20) + a + _rs(rng, rng.randrange(0, 20)))[:250]
+            a = _mut(rng, a[:200], rng.randrange(0, 12))
+        else:
+            a, b = a[:rng.randrange(130, 170)], a
+        pairs.append((a, b))
+    pairs += [("", "ACGT" * 40), ("ACG" * 50, ""), ("", "")]
+    return pairs
+
+
+def _jax_wavefront_engine(monkeypatch):
+    """The JAX engine on its pooled-wavefront path: a ``myers_sub`` below 8
+    closes the Myers gate, so every band runs ``banded_ed_pool``, the
+    Pallas kernel (interpret mode) at Wp = 128 and the scan above; its
+    native library is hidden, so small rounds take that path too."""
+    import isocon_tpu.native as jax_native
+
+    monkeypatch.setattr(jax_native, "native_available", lambda: False)
+    eng = JaxEngine(batch_pairs=128, use_pallas=True, ed_batch=128,
+                    interpret=True)
+    eng.pallas_L0 = 256
+    eng.native_cpu = False
+    return eng
+
+
+@pytest.fixture
+def long_bucket(monkeypatch):
+    from isocon_tpu_torch.ops import engine as te
+
+    monkeypatch.setattr(te, "MYERS_MAX_L", 128)
+
+
+@pytest.mark.parametrize("hw_mode", [False, True], ids=["nw", "hw"])
+@pytest.mark.parametrize("cap", [None, 30, 140])
+def test_long_bucket_route_matches_jax_wavefront_path(long_bucket, cap,
+                                                      hw_mode, monkeypatch):
+    pairs = _long_bucket_pairs(31 + int(hw_mode))
+    caps = None
+    if cap is not None:
+        rng = np.random.default_rng(cap)
+        caps = np.minimum(cap, rng.integers(0, 300, len(pairs)))
+    want = _jax_wavefront_engine(monkeypatch).edit_distances(
+        pairs, k_cap=caps, hw_mode=hw_mode)
+    port = PairEngine(device="cpu")
+    got = port.edit_distances(pairs, k_cap=caps, hw_mode=hw_mode)
+    np.testing.assert_array_equal(got[0], want[0])
+    known = want[0] >= 0
+    np.testing.assert_array_equal(got[1][known], want[1][known])
+    rungs = {Wp for _mode, Wp in port.wavefront_rungs}
+    # every pair that reached a kernel ran the wavefront (NW pairs whose
+    # length difference exceeds their cap reach none)
+    assert port.counters["ed_pairs_wavefront"] > len(pairs) // 3
+    assert port.counters["ed_pairs_full_window"] == 0
+    if cap is None:
+        # certified at 128, escalated once (NW) or twice (HW)
+        assert ({128, 256, 512} if hw_mode else {128, 256}) <= rungs
+        assert known.all()
+    else:
+        assert (~known).any() and known.any()  # some gave up under the cap
+    for (a, b), d, e in zip(pairs, *got):
+        if d >= 0 and a and b:
+            if hw_mode:
+                wd, _s0, e0, _ops = oracle.edit_distance_hw(a, b)
+                assert (d, e) == (wd, e0 + 1)
+            else:
+                assert d == oracle.edit_distance(a, b)
+
+
+def test_long_bucket_route_gives_up_at_the_small_ceiling_as_jax_does(
+        long_bucket, monkeypatch):
+    """A pair of distance 120 .. 126 under a cap of 126: band 128 clamps it
+    at 120 and cannot certify it, and the JAX engine's wavefront path gives
+    it up there as -1 although it meets the cap (its floor, 126 for equal
+    lengths, ignores the small band's ceiling).  A property of the
+    reference that the port copies; one more unit of cap and both
+    escalate and return the distance."""
+    rng = random.Random(3)
+    a = _rs(rng, 300)
+    b = list(a)
+    for p in rng.sample(range(300), 130):
+        b[p] = {"A": "C", "C": "G", "G": "T", "T": "A"}[b[p]]
+    b = "".join(b)
+    true = oracle.edit_distance(a, b)
+    assert 120 <= true <= 126
+    jax_engine = _jax_wavefront_engine(monkeypatch)
+    for cap, result in ((126, -1), (127, true)):
+        got, _ = PairEngine(device="cpu").edit_distances([(a, b)],
+                                                         k_cap=[cap])
+        want, _ = jax_engine.edit_distances([(a, b)], k_cap=[cap])
+        assert int(got[0]) == int(want[0]) == result
+
+
+def test_long_bucket_route_leaves_narrow_pools_alone(monkeypatch):
+    """Pairs in a pool at or below the constant still run the Myers
+    windows, and only the wider pools drop their Peq planes."""
+    from isocon_tpu_torch.ops import engine as te
+
+    monkeypatch.setattr(te, "MYERS_MAX_L", 256)
+    rng = random.Random(2)
+    pairs = [(a, _mut(rng, a, 9)) for a in (_rs(rng, 200) for _ in range(6))]
+    port = PairEngine(device="cpu")
+    got, _ = port.edit_distances(pairs)
+    assert port.counters["ed_pairs_wavefront"] == 0
+    assert [int(d) for d in got] == [oracle.edit_distance(a, b)
+                                     for a, b in pairs]
+    wide = _rs(rng, 300)
+    got, _ = port.edit_distances([(wide, _mut(rng, wide, 4)), pairs[0]])
+    assert port.counters["ed_pairs_wavefront"] == 1
+    assert port._get_pool(512).tensors()[2].shape[2] == 0
+    assert port._get_pool(256).tensors()[2].shape[2] == 8
+
+
+def test_true_width_long_reads_match_oracle():
+    """17 kb pairs through the unpatched engine: the 32,768-wide pool, the
+    banded wavefront at 128 and 256, one pair giving up under its cap."""
+    rng = random.Random(5)
+    base = _rs(rng, 17000)
+    pairs = [(base, _mut(rng, base, 30)), (_mut(rng, base, 70), base),
+             (base, base[:9000] + base[9040:]),
+             (base, _mut(rng, base, 400))]
+    caps = np.array([2 ** 30, 2 ** 30, 2 ** 30, 100])
+    port = PairEngine(device="cpu")
+    got, gej = port.edit_distances(pairs, k_cap=caps)
+    want = [oracle.edit_distance(a, b) for a, b in pairs[:3]] + [-1]
+    assert [int(d) for d in got] == want
+    assert [int(e) for e in gej[:3]] == [len(b) for _, b in pairs[:3]]
+    assert port.counters["ed_pairs_wavefront"] >= 4
+    assert port.counters["ed_pairs_full_window"] == 0
+    assert sorted(port._pools) == [32768]
+    assert "wavefront" in port.stats_line()

@@ -158,6 +158,29 @@ def test_pipeline_byte_identical(inputs, runs, form):
     assert engine.counters["hw_survivors"] > 0
 
 
+def test_pipeline_byte_identical_on_the_long_bucket_route(inputs, runs,
+                                                         monkeypatch):
+    """The same reads once more with the port's Myers limit shrunk below
+    their pool width (512), so every edit distance of both phases runs the
+    banded wavefront, NW and HW: the outputs stay byte-identical to the
+    JAX package's."""
+    from isocon_tpu_torch.ops import engine as port_engine
+
+    monkeypatch.setattr(port_engine, "MYERS_MAX_L", 256)
+    out_j, _out_t, jax_engine, _engine, _phase1 = runs("fasta")
+    out_w = os.path.join(inputs["dir"], "fasta_torch_wavefront")
+    engine, phase1 = port_cli.main(
+        ["pipeline", "-fl_reads", inputs["fasta"][0], "-outfolder", out_w,
+         "--device", "cpu"])
+    _assert_same_files(out_w, out_j)
+    for key in VOLUME:
+        assert engine.counters[key] == jax_engine.counters[key], key
+    assert 0 < phase1["ed_pairs_wavefront"] < engine.counters[
+        "ed_pairs_wavefront"]
+    assert engine.counters["ed_pairs_full_window"] == 0
+    assert {mode for mode, _wp in engine.wavefront_rungs} == {"NW", "HW"}
+
+
 def test_ccs_bam_changes_the_p_values(runs):
     """The BAM's quality values reach the test: other p-values than the
     empirical error rates of the plain fasta run give."""

@@ -1,7 +1,8 @@
 """Device busy share of the port's phase 1, or of its whole pipeline, on
 one CUDA card.
 
-Writes the synthetic workload (``isocon_tpu_torch.workload``), runs
+Writes a synthetic workload (``isocon_tpu_torch.workload``: the 10k-read
+family, or with ``--long`` the long-read family of 16.5-20 kb), runs
 ``get_candidates`` (with ``--pipeline``: ``pipeline``) through
 ``isocon_tpu_torch.cli`` with ``--profile`` (a ``torch.profiler`` trace of
 CPU ops and CUDA activity), and summarises the trace: wall seconds of the
@@ -15,8 +16,8 @@ With ``--host`` it runs the same command under ``cProfile`` instead (no
 torch profiler) and prints the port's functions with the most cumulative
 host time: where the host, which holds the card idle, spends the run.
 
-Usage: python tools/phase1_profile.py [--host] [--pipeline] [N_READS]
-       [WORKDIR]   (defaults: 10000 reads, a temporary directory)
+Usage: python tools/phase1_profile.py [--host] [--pipeline] [--long]
+       [N_READS] [WORKDIR]   (defaults: 10000 reads, a temporary directory)
 """
 from __future__ import annotations
 
@@ -56,19 +57,20 @@ def main() -> None:
     import torch
 
     from isocon_tpu_torch import cli
-    from isocon_tpu_torch.workload import write_reads
+    from isocon_tpu_torch.workload import write_long_reads, write_reads
 
     if not torch.cuda.is_available():
         sys.exit("phase1_profile: no CUDA device")
     argv = sys.argv[1:]
     host = "--host" in argv
     which = "pipeline" if "--pipeline" in argv else "get_candidates"
-    argv = [a for a in argv if a not in ("--host", "--pipeline")]
+    long_reads = "--long" in argv
+    argv = [a for a in argv if a not in ("--host", "--pipeline", "--long")]
     n_reads = int(argv[0]) if argv else 10000
     work = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
     os.makedirs(work, exist_ok=True)
     reads = os.path.join(work, "reads.fa")
-    write_reads(reads, n_reads)
+    (write_long_reads if long_reads else write_reads)(reads, n_reads)
     out = os.path.join(work, "out")
     if host:
         prof = cProfile.Profile()
@@ -111,7 +113,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
     print(json.dumps({
-        "card": smi, "n_reads": n_reads, "wall_s": wall,
+        "card": smi, "n_reads": n_reads, "long_reads": long_reads,
+        "wall_s": wall,
         "trace_span_s": span, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / span if span else None,
         "phases": phases,

@@ -1,6 +1,7 @@
 """Record the JAX package's ``pipeline`` results for ``chip_smoke.py``.
 
-Generates the synthetic workload (``isocon_tpu_torch.workload``), runs the
+Generates a synthetic workload (``isocon_tpu_torch.workload``: the 10k-read
+one, or with ``--long`` the long-read one), runs the
 JAX package's ``pipeline`` on the CPU and prints one JSON line with the
 sha256 of ``candidates_converged.fa``, ``final_candidates.fa`` and
 ``cluster_info.tsv``, the engine's volume counters (ED pairs and calls,
@@ -8,11 +9,12 @@ alignments and calls) at the end of phase 1 and at the end of the run, the
 ED pairs of each call, and the number of pairs that survive the HW
 prefilter of the static candidate graph.  ``chip_smoke.py`` holds the
 port's run on the card to these numbers in
-``isocon_tpu_torch/smoke_expect.json``.
+``isocon_tpu_torch/smoke_expect.json`` (the long-read run's line goes under
+its ``"long"`` key).
 
 The run pins PYTHONHASHSEED to 0 (``chip_smoke.pin_hash_seed`` says why).
 
-Usage: JAX_PLATFORMS=cpu python tools/smoke_expect.py N_READS OUTDIR
+Usage: JAX_PLATFORMS=cpu python tools/smoke_expect.py [--long] N_READS OUTDIR
 """
 from __future__ import annotations
 
@@ -29,11 +31,13 @@ def main() -> None:
     from chip_smoke import pin_hash_seed
 
     pin_hash_seed()     # cluster_info.tsv's row order depends on the seed
-    n_reads = int(sys.argv[1])
-    outdir = sys.argv[2]
+    args = [a for a in sys.argv[1:] if a != "--long"]
+    long_reads = "--long" in sys.argv[1:]
+    n_reads = int(args[0])
+    outdir = args[1]
     import isocon_tpu.native as native
     from isocon_tpu import cli
-    from isocon_tpu_torch.workload import write_reads
+    from isocon_tpu_torch.workload import write_long_reads, write_reads
 
     engines = []
     make_engine = cli.make_engine
@@ -80,9 +84,10 @@ def main() -> None:
 
     native.hw_traceback_batch = counted_traceback
     os.makedirs(outdir, exist_ok=True)
-    reads = os.path.join(outdir, "reads_%d.fa" % n_reads)
-    write_reads(reads, n_reads)
-    out = os.path.join(outdir, "out_%d" % n_reads)
+    tag = "%s%d" % ("long_" if long_reads else "", n_reads)
+    reads = os.path.join(outdir, "reads_%s.fa" % tag)
+    (write_long_reads if long_reads else write_reads)(reads, n_reads)
+    out = os.path.join(outdir, "out_%s" % tag)
     t0 = time.perf_counter()
     cli.main(["pipeline", "-fl_reads", reads, "-outfolder", out])
     dt = time.perf_counter() - t0
