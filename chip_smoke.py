@@ -7,7 +7,8 @@ On one NVIDIA GPU (sm_90a) this script
    name and power limit);
 2. builds the port's CUDA kernels from ``isocon_tpu_torch/csrc`` with nvcc
    and the host traceback library with g++, and prints the build seconds
-   and ptxas' register / shared-memory / spill report;
+   and ptxas' register / shared-memory / spill report (and K5's register
+   kernel's registers and spills per band and mode);
 3. holds every kernel against its plain PyTorch version on the card, at
    the main path's shapes, with exact equality on every entry (all outputs
    are integer DP results): K1 (banded Myers ED) and K2 (HW-mode / infix
@@ -16,12 +17,14 @@ On one NVIDIA GPU (sm_90a) this script
    also against the numpy oracle on a sample; K3 + K4 (affine forward +
    traceback walk) at L = 2048, bands 256 and 512, on 512 seeded pairs,
    some of which overflow; K5 (banded wavefront ED, NW and HW: distance and
-   end column) at L = 32,768 for bands 128 and 256 (and once more at the
-   engine's chunk of 16,384 pairs in the timing phase) and at L = 2048 for
-   bands 256 and 1024, on seeded pairs that hold uncertified, clamped and
+   end column) at L = 32,768 for bands 128 and 256 and at L = 2048 for
+   bands 256, 512, 1024 (every band of its register kernel) and 2048 (its
+   wide kernel), on seeded pairs that hold uncertified, clamped and
    out-of-band pairs, queries longer than their target, empty spans and
    lengths 0 and 1, certified entries also against the numpy oracle on a
-   sample;
+   sample; in the timing phase once more at the timed shapes: K5 on the
+   engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4 at the long
+   run's shape (band 512, L = 32,768) on a slice of the timed batch;
 4. runs ``pipeline`` (phase 1, ``get_candidates``, then phase 2,
    ``stat_filter``) through ``isocon_tpu_torch.cli`` on the card on the
    10,000-read workload (``isocon_tpu_torch.workload``), with every kernel
@@ -35,8 +38,9 @@ On one NVIDIA GPU (sm_90a) this script
    in the 32,768-wide bucket, where the edit distances run K5), against
    the ``"long"`` block of the same file;
 5. times each kernel and its plain version with CUDA events at the main
-   path's shapes and computes each kernel's bound (bytes over 3.35 TB/s,
-   int32 operations over 132 SMs x 64 lanes x the SM clock);
+   path's shapes and computes each kernel's bound (``bound_ms``); also K5
+   at band 256 and K3/K4 at the long run's shape, without timing their
+   plain versions;
 6. prints one JSON line with the kernels, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -79,15 +83,23 @@ AFFINE_OPS_PER_CELL = 26
 # Walk, per step: loop test 3, (d, o) 2, overflow test 2, lane and
 # diagonal index 4, direction bits 3, state and coordinate update 2.
 WALK_OPS_PER_STEP = 16
-# Wavefront, per DP cell (Wp/2 a diagonal): the recurrence 6 (neighbour
-# minimum, its +1, code compare, diagonal add, minimum, ceiling minimum)
-# and q's pad code past its length 2 (compare, select; the pool rows are
-# already padded with the target's pad code, so t needs none).  Not
-# counted, because the function does not need them in every cell: the
-# grid's boundary (only the first Wp/2 of some 36,500 diagonals can touch
-# it) and any guard of this implementation.  HW adds, per diagonal and not
-# per cell, the strict minimum over the one cell of row n: compare, select.
-WAVEFRONT_OPS_PER_CELL = 8
+# Wavefront, per DP cell (Wp/2 a diagonal), with the min-plus forms the
+# card has (sm_90's DPX instructions; their rate is not published, and it
+# is taken as the integer rate): the minimum of the two neighbours and the
+# diagonal 1 (min(a, b, c)), the code compare 1, the choice of the
+# diagonal or the ceiling 1, and the add-min 1 (min(a + 1, b));
+# min(min(up, down) + 1, diag + (q != t)) capped at the ceiling is
+# min(min(up, down, diag) + 1, q == t ? diag : ceiling) for
+# diag <= ceiling.  Written out without DPX it is 6.  Only this count
+# assumes DPX: the Myers and affine counts above take each operation as
+# written.  Per diagonal, not per cell: the pad test of the one code that
+# enters it (compare, select).  Not counted, because the function does not
+# need them in every cell: the grid's boundary (only the first Wp/2 of
+# some 36,500 diagonals can touch it) and any guard of an implementation.
+# HW adds, per diagonal, the strict minimum over the one cell of row n:
+# compare, select.
+WAVEFRONT_OPS_PER_CELL = 4
+WAVEFRONT_OPS_PER_DIAGONAL = 2
 WAVEFRONT_HW_OPS_PER_DIAGONAL = 2
 
 T0 = time.perf_counter()
@@ -95,6 +107,16 @@ T0 = time.perf_counter()
 
 def log(msg: str) -> None:
     print("[%7.1fs] %s" % (time.perf_counter() - T0, msg), flush=True)
+
+
+def bound_ms(nbytes, ops, clock_mhz):
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    a function must move over 3.35 TB/s and its int32 operations over 132
+    SMs x 64 lanes x the SM clock."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (SMS * INT32_LANES_PER_SM * clock_mhz * 1e6) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
 
 
 def nvidia_smi(query: str) -> str:
@@ -313,9 +335,36 @@ def phase_build(_build, native):
             if (line.startswith("==") or "Compiling entry" in line
                     or "Used" in line or "spill" in line):
                 print("  " + line.strip())
+    for kernel, regs, spill in register_kernel_report(_build.BUILD_LOG):
+        log("K5 register kernel %s: %d registers, %s" % (kernel, regs, spill))
     for name in _build.SOURCES:
         _build.load(name)
     return secs
+
+
+def register_kernel_report(build_log):
+    """(Wp and mode, registers, spill line) of each instantiation of K5's
+    register kernel in ptxas' report."""
+    import re
+
+    out = []
+    for entry in build_log:
+        if not entry.startswith("== wavefront_ed"):
+            continue
+        kernel = spill = None
+        for line in entry.splitlines():
+            m = re.search(r"wavefront_warp_kernelILi(\d+)ELb([01])E", line)
+            if "Compiling entry" in line:
+                kernel = ("Wp %d %s" % (64 * int(m.group(1)), "HW" if
+                                        m.group(2) == "1" else "NW")
+                          if m else None)
+            elif kernel and "spill" in line:
+                spill = line.strip()
+            elif kernel and "Used" in line:
+                regs = int(re.search(r"Used (\d+) registers", line).group(1))
+                out.append((kernel, regs, spill))
+                kernel = None
+    return sorted(out, key=lambda r: (int(r[0].split()[1]), r[0]))
 
 
 def phase_check_myers(torch, np, myers, dev, L=2048, B=4096):
@@ -430,12 +479,13 @@ def phase_check_affine(torch, np, affine, acu, dev, L=2048, B=512):
 
 def phase_check_wavefront(torch, np, wavefront, oracle, dev):
     """K5 against ``banded_ed_plain`` on every entry of (ed, end_j), NW and
-    HW: bands 128 and 256 at L = 32,768 and bands 256 and 1024 at
-    L = 2048."""
+    HW: the register kernel at every band it takes (128 and 256 at
+    L = 32,768, 256, 512 and 1024 at L = 2048) and the wide kernel at 2048
+    (L = 2048)."""
     decode = lambda row, k: "".join("ACGTXN"[c] for c in row[:k])
     err = 0
     for Wp, L, B in ((128, 32768, 96), (256, 32768, 24), (256, 2048, 512),
-                     (1024, 2048, 512)):
+                     (512, 2048, 512), (1024, 2048, 512), (2048, 2048, 256)):
         small = Wp <= wavefront.SMALL_WP
         q, t, ql, tl = (wavefront_long_pairs(np, B, L) if L > 2048
                         else wavefront_wide_pairs(np, B, L))
@@ -654,15 +704,149 @@ def _time(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def k5_chunk(torch, np, dev):
+    """K5's timed input, the engine's chunk: ``WAVE_BATCH`` pairs cycled
+    over the noisy 16.5-20 kb copies of ``wavefront_long_pairs`` (seed 7)
+    in a 32,768-wide pool.  Returns (pool, plen, qrow, trow)."""
+    from isocon_tpu_torch.ops.engine import WAVE_BATCH
+
+    L, B0 = 32768, 96
+    q, t, ql, tl = wavefront_long_pairs(np, B0, L, seed=7)
+    noisy = np.array([b for b in range(8, B0) if b % 6 < 3])
+    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+    qrow = torch.from_numpy(noisy).to(dev)[
+        torch.arange(WAVE_BATCH, device=dev) % len(noisy)]
+    return pool, plen, qrow, qrow + B0
+
+
+def time_k5(torch, wavefront, chunk, Wp, hw_mode):
+    """K5 at band Wp on ``k5_chunk``'s pairs: (kernel ms, the result, bytes,
+    int32 operations, shape).  The ms is the mean of 3 calls after a
+    warm-up (CUDA events); bytes and operations are what ``bound_ms``
+    counts: the pool, the indices and lengths read and (ed, end_j) written;
+    ``WAVEFRONT_OPS_PER_CELL`` over (n + m - 1) * Wp/2 cells and the
+    per-diagonal operations."""
+    pool, plen, qrow, trow = chunk
+    B = qrow.shape[0]
+    k5 = lambda: wavefront.banded_ed_pool(pool, plen, qrow, trow, Wp=Wp,
+                                          hw_mode=hw_mode)
+    k5()
+    ms, got = _time(torch, k5, 3)
+    diagonals = float((plen[qrow] + plen[trow] - 1).to(torch.float64).sum())
+    per_diagonal = WAVEFRONT_OPS_PER_DIAGONAL + (
+        WAVEFRONT_HW_OPS_PER_DIAGONAL if hw_mode else 0)
+    ops = diagonals * ((Wp // 2) * WAVEFRONT_OPS_PER_CELL + per_diagonal)
+    nbytes = pool.numel() + B * 4 * 4 + B * 8
+    return ms, got, nbytes, ops, "B=%d Wp=%d L=%d" % (B, Wp, pool.shape[1])
+
+
+def plain_on_distinct_pairs(torch, wavefront, pool, plen, qrow, trow, *, Wp,
+                            hw_mode):
+    """``banded_ed_plain`` of a batch of pool-row pairs, run once on each
+    distinct (query row, target row) and spread back to every entry: the
+    plain result of the whole batch at the cost of its distinct pairs."""
+    R = pool.shape[0]
+    key, inv = torch.unique(qrow.long() * R + trow.long(),
+                            return_inverse=True)
+    uq, ut = key // R, key % R
+    ed, ej = wavefront.banded_ed_plain(
+        pool[uq], pool[ut], plen[uq], plen[ut], Wp=Wp, hw_mode=hw_mode,
+        small=Wp <= wavefront.SMALL_WP)
+    return ed[inv], ej[inv]
+
+
+def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
+    """K5 on ``k5_chunk`` (band 128 NW and HW, band 256 NW) and K3/K4 at the
+    long run's shape (band 512, 512 pairs of the same copies), into ``res``
+    as ``phase_timing`` keeps them, each held to its plain version: K5 on
+    every entry, K3/K4 on the batch's first pairs.  Returns the max abs
+    error of each kernel."""
+    # K5 -------------------------------------------------------------------
+    chunk = k5_chunk(torch, np, dev)
+    pool, plen, qrow, trow = chunk
+    n, m = plen[qrow], plen[trow]
+    err5 = 0
+    for Wp, hw_mode, name in (
+            (128, False, "wavefront_ed"), (128, True, "wavefront_ed (HW)"),
+            (256, False, "wavefront_ed Wp=256")):
+        ms, got, nbytes, ops, shape = time_k5(torch, wavefront, chunk, Wp,
+                                              hw_mode)
+        t0 = time.perf_counter()
+        plain_ms = None
+        if Wp == 128:      # the plain version, timed on the whole chunk
+            plain_ms, want = _time(torch, lambda: wavefront.banded_ed_plain(
+                pool[qrow], pool[trow], n, m, Wp=Wp, hw_mode=hw_mode,
+                small=True), 1)
+        else:
+            want = plain_on_distinct_pairs(torch, wavefront, pool, plen, qrow,
+                                           trow, Wp=Wp, hw_mode=hw_mode)
+        err5 = max(err5, check_equal("K5 %s" % shape, got, want))
+        log("K5 %s %s, the timed chunk: (ed, end_j) equal to the plain "
+            "version on every entry (%.1f s)" % ("HW" if hw_mode else "NW",
+                                                 shape,
+                                                 time.perf_counter() - t0))
+        res[name] = (ms, plain_ms, nbytes, ops, shape)
+
+    # K3 / K4 at the long run's shape: align_pairs on the 32,768-wide pool
+    B, Wp, S = 512, 512, 12
+    L = pool.shape[1]
+    ia = qrow[:B]
+    ib = trow[:B]
+    n, m = plen[ia], plen[ib]
+    k = torch.arange(B, device=dev)
+    ma = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
+    go = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    ge = torch.zeros(B, dtype=torch.int32, device=dev)
+    nops = int((n + m).max()) + 1
+    W = Wp // 2
+    k3 = lambda: acu.affine_fwd(pool, ia, ib, n, m, ma, mi, go, ge, Wp=Wp)
+    k3()
+    ms3, (best, ei, ej, dirs) = _time(torch, k3, 3)
+    k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+    k4()
+    ms4, (ops4, fi, fj, ov) = _time(torch, k4, 3)
+    cells = float((n + m - 1).to(torch.float64).sum()) * W
+    in_bytes = float((n + m).to(torch.float64).sum()) + B * 4 * 8
+    shape = "B=%d Wp=%d L=%d" % (B, Wp, L)
+    res["affine_fwd (long)"] = (ms3, None, in_bytes + cells + B * 12,
+                                cells * AFFINE_OPS_PER_CELL, shape)
+    steps = float(((ei - fi) + (ej - fj) + 1).to(torch.float64).sum())
+    res["affine_walk (long)"] = (ms4, None, steps + B * 8 + B * nops + B * 12,
+                                 steps * WALK_OPS_PER_STEP, shape)
+    # held to the plain versions on the batch's first S pairs: the plain
+    # forward and walk cost a step per diagonal (some 37,000 here), not B.
+    # K4's walk of K3's direction bytes is held to the plain forward +
+    # walk, which holds the bytes on the path too (K4 alone on the same
+    # bytes is held at L = 2048, phase_check_affine).
+    t0 = time.perf_counter()
+    s = slice(0, S)
+    pb, pei, pej, pdirs = affine.sg_forward_plain(
+        pool[ia[s]], pool[ib[s]], n[s], m[s], ma[s], mi[s], go[s], ge[s], Wp)
+    err3 = check_equal("K3 " + shape, [best[s], ei[s], ej[s]],
+                       [pb, pei, pej])
+    err4 = check_equal("K3+K4 " + shape, [ops4[s], fi[s], fj[s], ov[s]],
+                       affine.sg_walk_plain(pdirs, pei, pej, Wp, nops))
+    log("K3+K4 %s, the first %d pairs of the timed batch: equal to the "
+        "plain versions on every entry (%.1f s)"
+        % (shape, S, time.perf_counter() - t0))
+    del dirs, pdirs
+    torch.cuda.empty_cache()
+    return {"affine_fwd": err3, "affine_walk": err4, "wavefront_ed": err5}
+
+
 def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     """Kernel and plain-version times at the main paths' shapes: K1 and K2
     at win 7 on a 262,144-pair chunk (the engine's ED chunk), K3/K4 at band
     256 on an 8192-pair batch (the engine's alignment batch), L = 2048; K5
     at band 128 on a 16,384-pair chunk (the engine's K5 chunk) of noisy
-    16.5-20 kb copies, L = 32,768, NW and HW."""
-    from isocon_tpu_torch.ops.engine import WAVE_BATCH
-
-    int32_rate = SMS * INT32_LANES_PER_SM * clock_mhz * 1e6
+    16.5-20 kb copies, L = 32,768, NW and HW.  Kernel times only: K5 NW at
+    band 256 on the same chunk, and K3/K4 at the long run's shape (band
+    512 on a 512-pair batch of such copies, L = 32,768).  Each K5 and
+    long-shape K3/K4 reading is also held to the plain version on every
+    entry (K5) or on a slice of the batch (K3/K4).  Returns the readings
+    and the max abs error of each kernel so held."""
     res = {}
 
     # K1 -------------------------------------------------------------------
@@ -744,46 +928,19 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     res["affine_fwd"] = (ms3, plain3) + res["affine_fwd"][2:]
     res["affine_walk"] = (ms4, plain4) + res["affine_walk"][2:]
 
-    # K5 -------------------------------------------------------------------
-    L, B0, B, Wp = 32768, 96, WAVE_BATCH, 128
-    q, t, ql, tl = wavefront_long_pairs(np, B0, L, seed=7)
-    noisy = np.array([b for b in range(8, B0) if b % 6 < 3])
-    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
-    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
-    qrow = torch.from_numpy(noisy).to(dev)[
-        torch.arange(B, device=dev) % len(noisy)]
-    trow = qrow + B0
-    n, m = plen[qrow], plen[trow]
-    diagonals = float((n + m - 1).to(torch.float64).sum())
-    nbytes = pool.numel() + B * 4 * 4 + B * 8
-    for hw_mode, name, per_diagonal in (
-            (False, "wavefront_ed", 0),
-            (True, "wavefront_ed (HW)", WAVEFRONT_HW_OPS_PER_DIAGONAL)):
-        k5 = lambda: wavefront.banded_ed_pool(pool, plen, qrow, trow, Wp=Wp,
-                                              hw_mode=hw_mode)
-        k5()
-        ms, got = _time(torch, k5, 3)
-        plain_ms, want = _time(torch, lambda: wavefront.banded_ed_plain(
-            pool[qrow], pool[trow], n, m, Wp=Wp, hw_mode=hw_mode,
-            small=True), 1)
-        # the engine's own chunk shape, held to the plain version too
-        check_equal("K5 %s B=%d" % ("HW" if hw_mode else "NW", B), got, want)
-        ops = diagonals * ((Wp // 2) * WAVEFRONT_OPS_PER_CELL + per_diagonal)
-        res[name] = (ms, plain_ms, nbytes, ops,
-                     "B=%d Wp=%d L=%d" % (B, Wp, L))
-    torch.cuda.empty_cache()
+    errs = time_long_shapes(torch, np, affine, acu, wavefront, dev, res)
 
     out = {}
     for name, (kms, pms, nbytes, ops, shape) in res.items():
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / int32_rate * 1e3
-        out[name] = dict(ms=kms, plain_ms=pms, bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else
-                         "operations", shape=shape)
-        log("%-17s %s: kernel %.3f ms, plain %.1f ms, bound %.3f ms (%s)"
-            % (name, shape, kms, pms, out[name]["bound_ms"],
-               out[name]["bound_by"]))
-    return out
+        bms, by = bound_ms(nbytes, ops, clock_mhz)
+        out[name] = dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                         shape=shape)
+        log("%-19s %s: kernel %.3f ms, plain %s, bound %.3f ms (%s), "
+            "%.2fx the bound"
+            % (name, shape, kms, "not timed" if pms is None else
+               "%.1f ms" % pms, out[name]["bound_ms"], out[name]["bound_by"],
+               kms / out[name]["bound_ms"]))
+    return out, errs
 
 
 KERNELS = [
@@ -846,8 +1003,10 @@ def main() -> None:
     long_launches = phase_main_path(torch, _build, dev, long_reads=True)
     launches["wavefront_ed"] = long_launches["wavefront_ed"]
     log("launches on the long-read run: %s" % json.dumps(long_launches))
-    timing = phase_timing(torch, np, myers, affine, acu, wavefront, dev,
-                          clock_mhz)
+    timing, timing_errs = phase_timing(torch, np, myers, affine, acu,
+                                       wavefront, dev, clock_mhz)
+    for kname, err in timing_errs.items():
+        errs[kname] = max(errs[kname], err)
 
     kernels = []
     for kname, source, replaces in KERNELS:

@@ -37,7 +37,7 @@ _SIGNATURES = {
     "isocon_myers_hw": [_P] * 8 + [_I] * 4 + [_P],
     "isocon_affine_fwd": [_P] * 13 + [_I] * 4 + [_P],
     "isocon_affine_walk": [_P] * 7 + [_I] * 4 + [_P],
-    "isocon_wavefront_ed": [_P] * 8 + [_I] * 7 + [_P],
+    "isocon_wavefront_ed": [_P] * 9 + [_I] * 7 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

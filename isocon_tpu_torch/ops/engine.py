@@ -42,7 +42,7 @@ MYERS_MAX_L = 16384
 POOL_L_MIN = 256          # smallest padded pool width
 W0 = 128                  # first ED band (Myers window 7)
 ED_BATCH = 262144         # pairs per K1 / K2 launch
-WAVE_BATCH = 16384        # pairs per K5 launch (one block a pair)
+WAVE_BATCH = 16384        # pairs per K5 launch (one warp a pair at Wp <= 1024)
 ALIGN_BATCH = 8192        # pairs per K3/K4 launch ...
 ALIGN_SCRATCH_BYTES = 16e9  # ... capped by the K3 direction scratch
 PEQ_CHUNK_ROWS = 8192

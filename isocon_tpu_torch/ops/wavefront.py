@@ -34,7 +34,9 @@ A result is exact where ``band_certifies`` holds; the engine escalates Wp
 for the others.
 
 ``banded_ed_pool`` launches the CUDA kernel ``csrc/wavefront_ed.cu`` for
-CUDA tensors and runs ``banded_ed_plain`` for CPU tensors.
+CUDA tensors (its C entry picks the register kernel at bands 128, 256, 512
+and 1024 and the wide kernel at any other) and runs ``banded_ed_plain``
+for CPU tensors.
 """
 from __future__ import annotations
 
@@ -53,9 +55,10 @@ TPAD = 6
 SMALL_WP = 192  # bands up to this width are ``small``
 _UNSET_SMALL = 2 ** 30
 
-# The kernel keeps two diagonals of Wp/2 int32 cells in shared memory:
-# 4 * Wp bytes, 128 KB at this width (a block can opt into 227 KB).  Wider
-# bands use a scratch tensor in device memory, one row per resident block.
+# Bands outside the register kernel's (128 .. 1024) run the wide kernel,
+# which keeps two diagonals of Wp/2 int32 cells in shared memory: 4 * Wp
+# bytes, 128 KB at this width (a block can opt into 227 KB).  Wider bands
+# use a scratch tensor in device memory, one row per resident block.
 SHARED_MAX_WP = 32768
 SCRATCH_BLOCKS = 1056   # 132 SMs x 8 blocks
 
@@ -201,6 +204,8 @@ def _wavefront_cuda(pool, qrow, trow, n, m, *, Wp, hw_mode, small):
     ej = torch.empty(B, dtype=torch.int32, device=dev)
     if B == 0:
         return ed, ej
+    # the register kernel's pair counter; the C entry zeroes it
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     rows = 0
     scratch = None
     if Wp > SHARED_MAX_WP:
@@ -211,7 +216,8 @@ def _wavefront_cuda(pool, qrow, trow, n, m, *, Wp, hw_mode, small):
     rc = lib.isocon_wavefront_ed(
         P(pool.data_ptr()), P(qrow.data_ptr()), P(trow.data_ptr()),
         P(n.data_ptr()), P(m.data_ptr()), P(ed.data_ptr()),
-        P(ej.data_ptr()), P(scratch.data_ptr() if rows else None),
+        P(ej.data_ptr()), P(counter.data_ptr()),
+        P(scratch.data_ptr() if rows else None),
         ctypes.c_int(B), ctypes.c_int(pool.shape[1]), ctypes.c_int(Wp),
         ctypes.c_int(int(hw_mode)), ctypes.c_int(ceil_val),
         ctypes.c_int(unset), ctypes.c_int(rows), P(stream))

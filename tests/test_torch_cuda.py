@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here is marked ``cuda`` and, but for the build table's test,
+Every test here is marked ``cuda`` and, but for the build table's tests,
 skips itself without a CUDA device; run them on a machine with an sm_90a
 card and nvcc:
 
@@ -66,7 +66,7 @@ def test_build_table_lists_every_kernel():
     assert set(_build._SIGNATURES) == {
         "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
         "isocon_affine_walk", "isocon_wavefront_ed"}
-    assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 16
+    assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
@@ -213,14 +213,66 @@ def _wavefront_code_pairs(seed, B, L):
     return q, t, ql, tl
 
 
+def test_smoke_reads_register_kernel_report():
+    """Needs no card: ``chip_smoke.py`` reads the band, mode, registers and
+    spills of each instantiation of K5's register kernel from ptxas'
+    report, and nothing of the other kernels."""
+    import chip_smoke
+
+    spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    entry = "\n".join([
+        "== wavefront_ed ==",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_121wavefront"
+        "_warp_kernelILi4ELb1EEEvPKhPKi' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN4_GLOBAL__N_1",
+        "    " + spill,
+        "ptxas info    : Used 72 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_121wavefront"
+        "_wide_kernelILb0EEEvPKhPKi' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 32 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_121wavefront"
+        "_warp_kernelILi2ELb0EEEvPKhPKi' for 'sm_90a'",
+        "    16 bytes stack frame, 16 bytes spill stores, 28 bytes spill "
+        "loads",
+        "ptxas info    : Used 40 registers, used 0 barriers"])
+    other = "== myers_ed ==\nptxas info    : Used 64 registers"
+    assert chip_smoke.register_kernel_report([other, entry]) == [
+        ("Wp 128 NW", 40, "16 bytes stack frame, 16 bytes spill stores, "
+         "28 bytes spill loads"),
+        ("Wp 256 HW", 72, spill)]
+
+
 @pytest.mark.parametrize("hw_mode", [False, True], ids=["nw", "hw"])
-@pytest.mark.parametrize("Wp", [128, 256, 1024, 32768, 65536])
+def test_smoke_plain_on_distinct_pairs_is_the_batch_plain(hw_mode):
+    """Needs no card: ``chip_smoke.py`` holds K5 on its timed chunk (16,384
+    entries, a few dozen distinct pairs) to the plain version run once per
+    distinct pair and spread back; that equals the plain version of the
+    whole batch on every entry."""
+    import chip_smoke
+
+    q, t, ql, tl = _wavefront_code_pairs(9, 6, 96)    # 12 pairs
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), 96, "cpu")
+    qrow = torch.tensor([3, 0, 3, 11, 1, 0, 3, 2, 4, 11, 7, 0])
+    trow = qrow + 12
+    trow[1] = 20                        # one query row with two targets
+    got = chip_smoke.plain_on_distinct_pairs(torch, tw, pool, plen, qrow,
+                                             trow, Wp=128, hw_mode=hw_mode)
+    want = tw.banded_ed_plain(pool[qrow], pool[trow], plen[qrow],
+                              plen[trow], Wp=128, hw_mode=hw_mode, small=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("hw_mode", [False, True], ids=["nw", "hw"])
+@pytest.mark.parametrize("Wp", [128, 256, 512, 1024, 2048, 32768, 65536])
 def test_wavefront_kernel_matches_plain(Wp, hw_mode):
     """K5 against its plain version on every entry, certified or not: the
-    small band, wider bands in shared memory (32768: the 128 KB opt-in) and
-    the device-memory scratch beyond."""
+    register kernel at every band it takes (128 .. 1024), the wide kernel
+    above it in shared memory (2048; 32768: the 128 KB opt-in) and the
+    device-memory scratch beyond."""
     dev = _card()
-    Lp, B = (512, 128) if Wp <= 1024 else (128, 24)
+    Lp, B = (512, 128) if Wp <= 2048 else (128, 24)
     q, t, ql, tl = _wavefront_code_pairs(4, B, Lp)
     pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
                                  np.concatenate([ql, tl]), Lp, dev)
@@ -240,6 +292,52 @@ def test_wavefront_kernel_matches_plain(Wp, hw_mode):
                                  hw_mode=hw_mode, small=True)
         assert (~cert).any() and cert.any()
         assert bool((ed >= tw.CLAMP8).any())
+
+
+@pytest.mark.parametrize("hw_mode", [False, True], ids=["nw", "hw"])
+@pytest.mark.parametrize("Wp", [128, 256, 512, 1024])
+def test_wavefront_register_kernel_ragged_batch(Wp, hw_mode):
+    """The register kernel on a batch that is no multiple of the four pairs
+    a block, whose warps meet pairs of very different lengths (0, 1, 40,
+    L) in turn and length differences outside the band on both sides."""
+    dev = _card()
+    L, B = 3000, 4 * 37 + 3
+    rs = np.random.default_rng(Wp + hw_mode)
+    q = np.full((B, L), 6, np.int8)
+    t = np.full((B, L), 6, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    H = Wp // 2
+    for b in range(B):
+        n = (0, 1, 40, L, int(rs.integers(2, L)))[b % 5]
+        a = rs.choice(_ALPHA, size=n)
+        kind = b % 4
+        if kind == 0:                   # a noisy copy
+            o = np.where(rs.random(n) < 0.03, rs.choice(_ALPHA, size=n), a)
+        elif kind == 1:                 # length difference above the band
+            o = np.concatenate([a, rs.choice(_ALPHA, size=H + 1 + b % 7)])
+        elif kind == 2:                 # below it
+            o = a[:max(0, n - H - b % 5)]
+        else:                           # unrelated, any length
+            o = rs.choice(_ALPHA, size=int(rs.integers(0, L + 1)))
+        o = o[:L]
+        q[b, :n] = a
+        t[b, :o.size] = o
+        ql[b], tl[b] = n, o.size
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), L, dev)
+    ia = torch.arange(B, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["wavefront_ed"]
+    ed, ej = tw.banded_ed_pool(pool, plen, ia, ia + B, Wp=Wp,
+                               hw_mode=hw_mode)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wavefront_ed"] == before + 1
+    wed, wej = tw.banded_ed_plain(pool[:B], pool[B:], plen[:B], plen[B:],
+                                  Wp=Wp, hw_mode=hw_mode,
+                                  small=Wp <= tw.SMALL_WP)
+    assert torch.equal(ed, wed) and torch.equal(ej, wej)
+    delta = tl.astype(np.int64) - ql
+    assert (delta > H).any() and (delta < 1 - H).any()
 
 
 def test_wavefront_scratch_blocks_loop_over_pairs(monkeypatch):
