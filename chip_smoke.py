@@ -7,24 +7,29 @@ On one NVIDIA GPU (sm_90a) this script
    name and power limit);
 2. builds the port's CUDA kernels from ``isocon_tpu_torch/csrc`` with nvcc
    and the host traceback library with g++, and prints the build seconds
-   and ptxas' register / shared-memory / spill report (and K5's register
-   kernel's registers and spills per band and mode);
+   and ptxas' register / shared-memory / spill report (and the registers
+   and spills of K3's register kernel per band and of K5's per band and
+   mode);
 3. holds every kernel against its plain PyTorch version on the card, at
    the main path's shapes, with exact equality on every entry (all outputs
    are integer DP results): K1 (banded Myers ED) and K2 (HW-mode / infix
    Myers: distance and end column) at L = 2048 for windows 7, 9, 17, 33
    and the full width on 4096 seeded pairs each, K2's certified entries
    also against the numpy oracle on a sample; K3 + K4 (affine forward +
-   traceback walk) at L = 2048, bands 256 and 512, on 512 seeded pairs,
-   some of which overflow; K5 (banded wavefront ED, NW and HW: distance and
-   end column) at L = 32,768 for bands 128 and 256 and at L = 2048 for
-   bands 256, 512, 1024 (every band of its register kernel) and 2048 (its
-   wide kernel), on seeded pairs that hold uncertified, clamped and
-   out-of-band pairs, queries longer than their target, empty spans and
-   lengths 0 and 1, certified entries also against the numpy oracle on a
-   sample; in the timing phase once more at the timed shapes: K5 on the
-   engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4 at the long
-   run's shape (band 512, L = 32,768) on a slice of the timed batch;
+   traceback walk) at L = 2048, bands 256, 512 and 1024 (every band of
+   K3's register kernel, on 512, 264 and 100 pairs: one and four warps a
+   pair) and 2048 (its block kernel), on seeded pairs of which
+   some overflow; K5 (banded wavefront ED, NW and HW:
+   distance and end column) at L = 32,768 for bands 128 and 256 and at
+   L = 2048 for bands 256, 512, 1024 (every band of its register kernel)
+   and 2048 (its wide kernel), on seeded pairs that hold uncertified,
+   clamped and out-of-band pairs, queries longer than their target, empty
+   spans and lengths 0 and 1, certified entries also against the numpy
+   oracle on a sample; in the timing phase once more at the timed shapes:
+   K5 on the engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
+   on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
+   shape (band 512, L = 32,768) on a slice of the timed batch, K3 at the
+   runs' mean launch sizes against its own launch at the table shape;
 4. runs ``pipeline`` (phase 1, ``get_candidates``, then phase 2,
    ``stat_filter``) through ``isocon_tpu_torch.cli`` on the card on the
    10,000-read workload (``isocon_tpu_torch.workload``), with every kernel
@@ -39,8 +44,9 @@ On one NVIDIA GPU (sm_90a) this script
    the ``"long"`` block of the same file;
 5. times each kernel and its plain version with CUDA events at the main
    path's shapes and computes each kernel's bound (``bound_ms``); also K5
-   at band 256 and K3/K4 at the long run's shape, without timing their
-   plain versions;
+   at band 256, K3/K4 at the long run's shape and K3 at the runs' mean
+   launch sizes (917 pairs at band 256, L = 2048; 119 at band 512,
+   L = 32,768), without timing their plain versions;
 6. prints one JSON line with the kernels, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -75,11 +81,24 @@ MYERS_OPS_PER_WORD = 20
 # latch 2 (compare, select), the running minimum 5 (three compares, two
 # ands) and its two selects 2.
 MYERS_HW_WALK_OPS_PER_COLUMN = 15
-# Affine, per band cell: substitution score 2 (compare, select), E 4 (two
-# subtracts, max, open-vs-extend compare), F 4, diagonal add 1, H 2 maxes,
-# direction code 4 (two compares, two selects), direction byte 4 (two
-# shifts, two ors), NEG floors 3, band-edge start 1.
-AFFINE_OPS_PER_CELL = 26
+# Affine, per band cell of the steady diagonals, with the fused forms sm_90
+# has (DPX add-max and max of three, three-input LOP3): substitution score
+# 2 (code compare, select of match or mismatch), diagonal add 1, E 3 (open
+# subtract, extend-or-open as one add-max max(e - ext, h - open), opened
+# compare E == open, which is open >= extend), F 3 (the same), H 1 (max of
+# three of the unfloored diagonal, E and F), direction code 4 (H == diagonal
+# and H == E compares, two selects), direction byte 3 (the two opened bits
+# selected, one three-input LOP3 joining them to the code), NEG floors 3
+# (H, E, F).  Per diagonal, not per cell: the pad test of the one code that
+# enters it (compare, select).  Not counted, because the function does not
+# need them in every cell: the boundary rules (row 0, column 0 and the cells
+# outside the grid lie in the band only on the first Wp/2 diagonals), the
+# endpoint's compare over the column-m and row-n cells (at most Wp/2 + 1 of
+# each a pair) and any guard of an implementation.  An earlier count of 26
+# took each operation as written (E and F 4 each, H 2, the byte 4 with its
+# shifts and ors) and added a band-edge start test in every cell.
+AFFINE_OPS_PER_CELL = 20
+AFFINE_OPS_PER_DIAGONAL = 2
 # Walk, per step: loop test 3, (d, o) 2, overflow test 2, lane and
 # diagonal index 4, direction bits 3, state and coordinate update 2.
 WALK_OPS_PER_STEP = 16
@@ -90,12 +109,12 @@ WALK_OPS_PER_STEP = 16
 # diagonal or the ceiling 1, and the add-min 1 (min(a + 1, b));
 # min(min(up, down) + 1, diag + (q != t)) capped at the ceiling is
 # min(min(up, down, diag) + 1, q == t ? diag : ceiling) for
-# diag <= ceiling.  Written out without DPX it is 6.  Only this count
-# assumes DPX: the Myers and affine counts above take each operation as
-# written.  Per diagonal, not per cell: the pad test of the one code that
-# enters it (compare, select).  Not counted, because the function does not
-# need them in every cell: the grid's boundary (only the first Wp/2 of
-# some 36,500 diagonals can touch it) and any guard of an implementation.
+# diag <= ceiling.  Written out without DPX it is 6.  The Myers counts
+# above take each operation as written (no LOP3).  Per diagonal, not per
+# cell: the pad test of the one code that enters it (compare, select).
+# Not counted, because the function does not need them in every cell: the
+# grid's boundary (only the first Wp/2 of some 36,500 diagonals can touch
+# it) and any guard of an implementation.
 # HW adds, per diagonal, the strict minimum over the one cell of row n:
 # compare, select.
 WAVEFRONT_OPS_PER_CELL = 4
@@ -207,10 +226,11 @@ def hw_pairs(np, B, L, seed=3):
     return q, t, ql, tl
 
 
-def affine_pairs(np, B, L, seed=2):
+def affine_pairs(np, B, L, seed=2, offsets=(128, 256)):
     """K3/K4 pairs of 1000-1900 codes: mutated copies (0-10%), clipped
-    ends, and overlaps at offsets +-128 and +-256 (on the edge of the 256
-    and 512 bands: those walks overflow)."""
+    ends, and overlaps at offsets +-offsets[0] and +-offsets[1] (128 and
+    256: on the edge of the 256 and 512 bands, whose walks then overflow;
+    512 and 1024 for the 1024 and 2048 bands)."""
     rs = np.random.default_rng(seed)
     alpha = np.array([0, 1, 2, 3], np.uint8)
     q = np.full((B, L), 6, np.uint8)
@@ -222,7 +242,7 @@ def affine_pairs(np, B, L, seed=2):
         core = rs.choice(alpha, size=n)
         kind = b % 8
         if kind in (0, 1, 4, 5):
-            off = 128 if kind < 2 else 256
+            off = offsets[0] if kind < 2 else offsets[1]
             off -= kind % 2                   # +128 / -127, +256 / -255
             pre = rs.choice(alpha, size=off)
             if kind % 2 == 0:
@@ -336,35 +356,43 @@ def phase_build(_build, native):
                     or "Used" in line or "spill" in line):
                 print("  " + line.strip())
     for kernel, regs, spill in register_kernel_report(_build.BUILD_LOG):
-        log("K5 register kernel %s: %d registers, %s" % (kernel, regs, spill))
+        log("register kernel %s: %d registers, %s" % (kernel, regs, spill))
     for name in _build.SOURCES:
         _build.load(name)
     return secs
 
 
 def register_kernel_report(build_log):
-    """(Wp and mode, registers, spill line) of each instantiation of K5's
-    register kernel in ptxas' report."""
+    """(kernel, band and mode, registers, spill line) of each instantiation
+    of the register kernels in ptxas' report: K3's (one per band and warps
+    a pair) and K5's (one per band and mode)."""
     import re
 
     out = []
     for entry in build_log:
-        if not entry.startswith("== wavefront_ed"):
+        if not entry.startswith(("== affine_sg", "== wavefront_ed")):
             continue
         kernel = spill = None
         for line in entry.splitlines():
-            m = re.search(r"wavefront_warp_kernelILi(\d+)ELb([01])E", line)
             if "Compiling entry" in line:
-                kernel = ("Wp %d %s" % (64 * int(m.group(1)), "HW" if
-                                        m.group(2) == "1" else "NW")
-                          if m else None)
+                k3 = re.search(r"affine_warp_kernelILi(\d+)ELi(\d+)E", line)
+                k5 = re.search(r"wavefront_warp_kernelILi(\d+)ELb([01])E",
+                               line)
+                kernel = ("K3 Wp %d, warps a pair: %s" % (
+                    64 * int(k3.group(1)) * int(k3.group(2)), k3.group(2))
+                          if k3 else
+                          "K5 Wp %d %s" % (64 * int(k5.group(1)), "HW" if
+                                           k5.group(2) == "1" else "NW")
+                          if k5 else None)
             elif kernel and "spill" in line:
                 spill = line.strip()
             elif kernel and "Used" in line:
                 regs = int(re.search(r"Used (\d+) registers", line).group(1))
                 out.append((kernel, regs, spill))
                 kernel = None
-    return sorted(out, key=lambda r: (int(r[0].split()[1]), r[0]))
+    return sorted(out, key=lambda r: (r[0].split()[0],
+                                      int(r[0].split()[2].rstrip(",")),
+                                      r[0]))
 
 
 def phase_check_myers(torch, np, myers, dev, L=2048, B=4096):
@@ -437,43 +465,56 @@ def phase_check_myers_hw(torch, np, myers, oracle, dev, L=2048, B=4096):
 
 
 def phase_check_affine(torch, np, affine, acu, dev, L=2048, B=512):
-    q, t, ql, tl = affine_pairs(np, B, L)
-    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
-    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
-    ia = torch.arange(B, dtype=torch.int64, device=dev)
-    ib = ia + B
-    n, m = plen[ia], plen[ib]
+    """K3 against ``sg_forward_plain`` and K4 against ``sg_walk_plain`` on
+    every entry: K3's register kernel at every band it takes (256, 512,
+    1024) and its block kernel at 2048, each on pairs of which some
+    overflow the band; the register kernel on all B pairs (one warp a pair)
+    and on the first 2 x SMS and 100 (four warps a pair), held to the plain
+    versions of the same pairs."""
     k = torch.arange(B, device=dev)
     ma = torch.full((B,), 2, dtype=torch.int32, device=dev)
     mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
     go = torch.full((B,), 2, dtype=torch.int32, device=dev)
     ge = (k % 2).to(torch.int32)
-    nops = int((n + m).max()) + 1
     err3 = err4 = 0
-    for Wp in (256, 512):
-        best, ei, ej, dirs = acu.affine_fwd(pool, ia, ib, n, m, ma, mi, go,
-                                            ge, Wp=Wp)
-        ops, fi, fj, ov = acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
-        torch.cuda.synchronize()
+    for Wp in (256, 512, 1024, 2048):
+        q, t, ql, tl = affine_pairs(np, B, L, offsets=(
+            (128, 256) if Wp <= 512 else (512, 1024)))
+        pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+        plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+        ia = torch.arange(B, dtype=torch.int64, device=dev)
+        ib = ia + B
+        n, m = plen[ia], plen[ib]
+        nops = int((n + m).max()) + 1
         pb, pei, pej, pdirs = affine.sg_forward_plain(
             pool[ia], pool[ib], n, m, ma, mi, go, ge, Wp)
-        err3 = max(err3, check_equal("K3 Wp=%d" % Wp, [best, ei, ej],
-                                     [pb, pei, pej]))
-        # K4 on the kernel's own direction scratch ...
-        wops, wfi, wfj, wov = affine.sg_walk_plain(dirs, ei, ej, Wp, nops)
-        err4 = max(err4, check_equal("K4 Wp=%d" % Wp, [ops, fi, fj, ov],
-                                     [wops, wfi, wfj, wov]))
-        # ... and the fused result against the plain forward + walk
-        pops, pfi, pfj, pov = affine.sg_walk_plain(pdirs, pei, pej, Wp, nops)
-        check_equal("K3+K4 Wp=%d" % Wp, [ops, fi, fj, ov],
-                    [pops, pfi, pfj, pov])
-        n_ov = int(ov.sum())
-        log("K3+K4 Wp=%d L=%d B=%d: equal on every entry; %d overflow"
-            % (Wp, L, B, n_ov))
-        if n_ov == 0:
-            raise AssertionError("K3+K4 check set has no overflow at Wp=%d"
-                                 % Wp)
-        del dirs, pdirs
+        want = [pb, pei, pej] + list(affine.sg_walk_plain(pdirs, pei, pej, Wp,
+                                                          nops))
+        del pdirs
+        for Bk in ((B, 2 * SMS, 100) if Wp <= 1024 else (B,)):
+            s = slice(0, Bk)
+            best, ei, ej, dirs = acu.affine_fwd(pool, ia[s], ib[s], n[s],
+                                                m[s], ma[s], mi[s], go[s],
+                                                ge[s], Wp=Wp)
+            ops, fi, fj, ov = acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+            torch.cuda.synchronize()
+            name = "Wp=%d B=%d" % (Wp, Bk)
+            err3 = max(err3, check_equal("K3 " + name, [best, ei, ej],
+                                         [x[s] for x in want[:3]]))
+            # the fused result against the plain forward + walk ...
+            check_equal("K3+K4 " + name, [ops, fi, fj, ov],
+                        [x[s] for x in want[3:]])
+            if Bk == B:     # ... and K4 on the kernel's own bytes
+                err4 = max(err4, check_equal(
+                    "K4 " + name, [ops, fi, fj, ov],
+                    list(affine.sg_walk_plain(dirs, ei, ej, Wp, nops))))
+            n_ov = int(ov.sum())
+            log("K3+K4 %s L=%d: equal on every entry; %d overflow"
+                % (name, L, n_ov))
+            if n_ov == 0:
+                raise AssertionError("K3+K4 check set has no overflow at "
+                                     + name)
+            del dirs
     return err3, err4
 
 
@@ -741,6 +782,79 @@ def time_k5(torch, wavefront, chunk, Wp, hw_mode):
     return ms, got, nbytes, ops, "B=%d Wp=%d L=%d" % (B, Wp, pool.shape[1])
 
 
+def k3_batch(torch, np, dev, B, chunk=None):
+    """K3's timed input: B pairs cycled over ``affine_pairs``' 512 (seed 2,
+    L = 2048), or, given ``k5_chunk``'s chunk, its first B pairs (noisy
+    16.5-20 kb copies, L = 32,768); match 2, mismatch -1/-2/-4 in turn,
+    open 2, extend 0.  Returns (pool, ia, ib, n, m, ma, mi, go, ge)."""
+    if chunk is None:
+        B0 = 512
+        q, t, ql, tl = affine_pairs(np, B0, 2048)
+        pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+        plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+        ia = torch.arange(B, dtype=torch.int64, device=dev) % B0
+        ib = ia + B0
+    else:
+        pool, plen, qrow, trow = chunk
+        ia, ib = qrow[:B], trow[:B]
+    k = torch.arange(B, device=dev)
+    ma = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
+    go = torch.full((B,), 2, dtype=torch.int32, device=dev)
+    ge = torch.zeros(B, dtype=torch.int32, device=dev)
+    return pool, ia, ib, plen[ia], plen[ib], ma, mi, go, ge
+
+
+def time_k3(torch, acu, batch, Wp, warps=0):
+    """K3 at band Wp on ``k3_batch``'s pairs: (kernel ms, the result, bytes,
+    int32 operations, shape), as ``time_k5`` gives them.  ``warps``: the
+    register kernel's warps a pair (0: the launch size chooses, as on the
+    main path).  Bytes: the code bytes of both sequences and eight int32 a
+    pair read, a direction byte a cell and (best, ei, ej) written;
+    operations: ``AFFINE_OPS_PER_CELL`` over (n + m - 1) * Wp/2 cells and
+    ``AFFINE_OPS_PER_DIAGONAL`` over n + m - 1 diagonals."""
+    pool, ia, ib, n, m, ma, mi, go, ge = batch
+    B = ia.shape[0]
+    if warps:
+        k3 = lambda: acu.affine_fwd_cuda(pool, ia, ib, n, m, ma, mi, go, ge,
+                                         Wp=Wp, warps=warps)
+    else:       # the wrapper, which an older tree (kernel_time --root) has
+        k3 = lambda: acu.affine_fwd(pool, ia, ib, n, m, ma, mi, go, ge,
+                                    Wp=Wp)
+    k3()
+    ms, got = _time(torch, k3, 3)
+    diagonals = float((n + m - 1).to(torch.float64).sum())
+    cells = diagonals * (Wp // 2)
+    nbytes = (float((n + m).to(torch.float64).sum()) + B * 4 * 8 + cells
+              + B * 12)
+    ops = cells * AFFINE_OPS_PER_CELL + diagonals * AFFINE_OPS_PER_DIAGONAL
+    shape = "B=%d Wp=%d L=%d" % (B, Wp, pool.shape[1])
+    return ms, got, nbytes, ops, shape + (" warps=%d" % warps if warps else "")
+
+
+def time_k3_mean_launch(torch, acu, batch, Wp, B, nops, wants, res, name):
+    """K3 on the first B pairs of ``batch`` (the run's mean launch size),
+    into ``res[name]``, and K4's walk of its direction bytes.  Each of
+    ``wants`` is a (best, ei, ej, ops, fi, fj, ov) of the batch's first k
+    pairs that the launch's first k pairs are held to.  Returns the max abs
+    error of K3 and of K4."""
+    part = tuple(x[:B] for x in batch[1:])
+    ms, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(
+        torch, acu, (batch[0],) + part, Wp)
+    res[name] = (ms, None, nbytes, ops, shape)
+    got = (best, ei, ej) + tuple(acu.affine_walk(dirs, ei, ej, Wp=Wp,
+                                                 nops=nops))
+    del dirs
+    err3 = err4 = 0
+    for want in wants:
+        k = want[0].shape[0]
+        err3 = max(err3, check_equal("K3 " + shape,
+                                     [x[:k] for x in got[:3]], want[:3]))
+        err4 = max(err4, check_equal("K3+K4 " + shape,
+                                     [x[:k] for x in got[3:]], want[3:]))
+    return err3, err4
+
+
 def plain_on_distinct_pairs(torch, wavefront, pool, plen, qrow, trow, *, Wp,
                             hw_mode):
     """``banded_ed_plain`` of a batch of pool-row pairs, run once on each
@@ -758,10 +872,10 @@ def plain_on_distinct_pairs(torch, wavefront, pool, plen, qrow, trow, *, Wp,
 
 def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
     """K5 on ``k5_chunk`` (band 128 NW and HW, band 256 NW) and K3/K4 at the
-    long run's shape (band 512, 512 pairs of the same copies), into ``res``
-    as ``phase_timing`` keeps them, each held to its plain version: K5 on
-    every entry, K3/K4 on the batch's first pairs.  Returns the max abs
-    error of each kernel."""
+    long run's shape (band 512, 512 pairs of the same copies; K3 also on
+    its first 119), into ``res`` as ``phase_timing`` keeps them, each held
+    to its plain version: K5 on every entry, K3/K4 of both launches on the
+    batch's first pairs.  Returns the max abs error of each kernel."""
     # K5 -------------------------------------------------------------------
     chunk = k5_chunk(torch, np, dev)
     pool, plen, qrow, trow = chunk
@@ -789,32 +903,23 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
         res[name] = (ms, plain_ms, nbytes, ops, shape)
 
     # K3 / K4 at the long run's shape: align_pairs on the 32,768-wide pool
-    B, Wp, S = 512, 512, 12
-    L = pool.shape[1]
-    ia = qrow[:B]
-    ib = trow[:B]
-    n, m = plen[ia], plen[ib]
-    k = torch.arange(B, device=dev)
-    ma = torch.full((B,), 2, dtype=torch.int32, device=dev)
-    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
-    go = torch.full((B,), 2, dtype=torch.int32, device=dev)
-    ge = torch.zeros(B, dtype=torch.int32, device=dev)
+    Wp, S = 512, 12
+    batch = k3_batch(torch, np, dev, 512, chunk)
+    pool, ia, ib, n, m, ma, mi, go, ge = batch
+    B = ia.shape[0]
     nops = int((n + m).max()) + 1
-    W = Wp // 2
-    k3 = lambda: acu.affine_fwd(pool, ia, ib, n, m, ma, mi, go, ge, Wp=Wp)
-    k3()
-    ms3, (best, ei, ej, dirs) = _time(torch, k3, 3)
+    ms3, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(torch, acu,
+                                                            batch, Wp)
+    res["affine_fwd (long)"] = (ms3, None, nbytes, ops, shape)
     k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
     k4()
-    ms4, (ops4, fi, fj, ov) = _time(torch, k4, 3)
-    cells = float((n + m - 1).to(torch.float64).sum()) * W
-    in_bytes = float((n + m).to(torch.float64).sum()) + B * 4 * 8
-    shape = "B=%d Wp=%d L=%d" % (B, Wp, L)
-    res["affine_fwd (long)"] = (ms3, None, in_bytes + cells + B * 12,
-                                cells * AFFINE_OPS_PER_CELL, shape)
+    ms4, walk = _time(torch, k4, 3)
+    fi, fj = walk[1], walk[2]
     steps = float(((ei - fi) + (ej - fj) + 1).to(torch.float64).sum())
     res["affine_walk (long)"] = (ms4, None, steps + B * 8 + B * nops + B * 12,
                                  steps * WALK_OPS_PER_STEP, shape)
+    del dirs
+    torch.cuda.empty_cache()
     # held to the plain versions on the batch's first S pairs: the plain
     # forward and walk cost a step per diagonal (some 37,000 here), not B.
     # K4's walk of K3's direction bytes is held to the plain forward +
@@ -824,16 +929,29 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
     s = slice(0, S)
     pb, pei, pej, pdirs = affine.sg_forward_plain(
         pool[ia[s]], pool[ib[s]], n[s], m[s], ma[s], mi[s], go[s], ge[s], Wp)
-    err3 = check_equal("K3 " + shape, [best[s], ei[s], ej[s]],
-                       [pb, pei, pej])
-    err4 = check_equal("K3+K4 " + shape, [ops4[s], fi[s], fj[s], ov[s]],
-                       affine.sg_walk_plain(pdirs, pei, pej, Wp, nops))
+    plain = (pb, pei, pej) + tuple(affine.sg_walk_plain(pdirs, pei, pej, Wp,
+                                                        nops))
+    del pdirs
+    err3 = check_equal("K3 " + shape, [best[s], ei[s], ej[s]], plain[:3])
+    err4 = check_equal("K3+K4 " + shape, [x[s] for x in walk], plain[3:])
     log("K3+K4 %s, the first %d pairs of the timed batch: equal to the "
         "plain versions on every entry (%.1f s)"
         % (shape, S, time.perf_counter() - t0))
-    del dirs, pdirs
+    # the long run's mean launch, 119 pairs (four warps a pair): its
+    # first S pairs held to the same plain results, all 119 to the 512-pair
+    # launch (one warp a pair)
+    Bm = 119
+    kernel = tuple(x[:Bm] for x in (best, ei, ej) + tuple(walk))
+    e3, e4 = time_k3_mean_launch(torch, acu, batch, Wp, Bm, nops,
+                                 [plain, kernel], res,
+                                 "affine_fwd (long) B=%d" % Bm)
+    log("K3+K4 B=%d Wp=%d, the long run's mean launch: its first %d pairs "
+        "equal to the plain versions, all to the %d-pair launch"
+        % (Bm, Wp, S, B))
+    del walk, kernel
     torch.cuda.empty_cache()
-    return {"affine_fwd": err3, "affine_walk": err4, "wavefront_ed": err5}
+    return {"affine_fwd": max(err3, e3), "affine_walk": max(err4, e4),
+            "wavefront_ed": err5}
 
 
 def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
@@ -842,11 +960,15 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     256 on an 8192-pair batch (the engine's alignment batch), L = 2048; K5
     at band 128 on a 16,384-pair chunk (the engine's K5 chunk) of noisy
     16.5-20 kb copies, L = 32,768, NW and HW.  Kernel times only: K5 NW at
-    band 256 on the same chunk, and K3/K4 at the long run's shape (band
-    512 on a 512-pair batch of such copies, L = 32,768).  Each K5 and
-    long-shape K3/K4 reading is also held to the plain version on every
-    entry (K5) or on a slice of the batch (K3/K4).  Returns the readings
-    and the max abs error of each kernel so held."""
+    band 256 on the same chunk, K3/K4 at the long run's shape (band 512 on
+    a 512-pair batch of such copies, L = 32,768) and K3 at the runs' mean
+    launch sizes (the first 917 pairs of the 8192, the first 119 of the
+    512).  Each reading of K3, K4 and K5 is also held to the plain version:
+    on every entry (K5; K3 and K4's walk of its bytes on the 8192-pair
+    batch and its first 917), or on the first pairs of the batch (K3/K4 at
+    the long shape, on 512 and on 119 pairs; all 119 are also held to the
+    512-pair launch).  Returns the readings and the max abs error of each
+    kernel so held."""
     res = {}
 
     # K1 -------------------------------------------------------------------
@@ -889,46 +1011,48 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     res["myers_hw"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win))
 
     # K3 / K4 --------------------------------------------------------------
-    B0, B, Wp = 512, 8192, 256
-    q, t, ql, tl = affine_pairs(np, B0, L)
-    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
-    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
-    ia = torch.arange(B, dtype=torch.int64, device=dev) % B0
-    ib = ia + B0
-    n, m = plen[ia], plen[ib]
-    k = torch.arange(B, device=dev)
-    ma = torch.full((B,), 2, dtype=torch.int32, device=dev)
-    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
-    go = torch.full((B,), 2, dtype=torch.int32, device=dev)
-    ge = torch.zeros(B, dtype=torch.int32, device=dev)
+    Wp = 256
+    batch = k3_batch(torch, np, dev, 8192)
+    pool, ia, ib, n, m, ma, mi, go, ge = batch
+    B = ia.shape[0]
     nops = int((n + m).max()) + 1
-    W = Wp // 2
-    k3 = lambda: acu.affine_fwd(pool, ia, ib, n, m, ma, mi, go, ge, Wp=Wp)
-    k3()
-    ms3, (best, ei, ej, dirs) = _time(torch, k3, 3)
+    ms3, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(torch, acu,
+                                                            batch, Wp)
+    res["affine_fwd"] = (ms3, None, nbytes, ops, shape)
     k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
     k4()
-    ms4, (_ops, fi, fj, _ov) = _time(torch, k4, 3)
-    cells = float((n + m - 1).to(torch.float64).sum()) * W
-    in_bytes = float((n + m).to(torch.float64).sum()) + B * 4 * 8
-    res["affine_fwd"] = (ms3, None, in_bytes + cells + B * 12,
-                         cells * AFFINE_OPS_PER_CELL, "B=%d Wp=%d" % (B, Wp))
+    ms4, (ops4, fi, fj, ov) = _time(torch, k4, 3)
     steps = float(((ei - fi) + (ej - fj) + 1).to(torch.float64).sum())
     res["affine_walk"] = (ms4, None, steps + B * 8 + B * nops + B * 12,
-                          steps * WALK_OPS_PER_STEP, "B=%d Wp=%d" % (B, Wp))
+                          steps * WALK_OPS_PER_STEP, shape)
     del dirs
     torch.cuda.empty_cache()
-    plain3, (_b, pei, pej, pdirs) = _time(torch, lambda: (
+    plain3, (pb, pei, pej, pdirs) = _time(torch, lambda: (
         affine.sg_forward_plain(pool[ia], pool[ib], n, m, ma, mi, go, ge,
                                 Wp)), 1)
-    plain4, _ = _time(torch, lambda: affine.sg_walk_plain(
+    plain4, pwalk = _time(torch, lambda: affine.sg_walk_plain(
         pdirs, pei, pej, Wp, nops), 1)
     del pdirs
     torch.cuda.empty_cache()
     res["affine_fwd"] = (ms3, plain3) + res["affine_fwd"][2:]
     res["affine_walk"] = (ms4, plain4) + res["affine_walk"][2:]
+    err3 = check_equal("K3 " + shape, [best, ei, ej], [pb, pei, pej])
+    err4 = check_equal("K3+K4 " + shape, [ops4, fi, fj, ov], list(pwalk))
+    log("K3+K4 %s, the timed batch: equal to the plain versions on every "
+        "entry" % shape)
+    del ops4
+    # the 10k run's mean launch: 917 pairs, held to the same plain results
+    Bm = 917
+    e3, e4 = time_k3_mean_launch(
+        torch, acu, batch, Wp, Bm, nops,
+        [tuple(x[:Bm] for x in (pb, pei, pej) + tuple(pwalk))], res,
+        "affine_fwd B=%d" % Bm)
+    err3, err4 = max(err3, e3), max(err4, e4)
+    del pwalk
 
     errs = time_long_shapes(torch, np, affine, acu, wavefront, dev, res)
+    errs["affine_fwd"] = max(errs["affine_fwd"], err3)
+    errs["affine_walk"] = max(errs["affine_walk"], err4)
 
     out = {}
     for name, (kms, pms, nbytes, ops, shape) in res.items():

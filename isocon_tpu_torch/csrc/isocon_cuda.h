@@ -11,3 +11,14 @@
 static inline int isocon_launch_status() {
   return static_cast<int>(cudaGetLastError());
 }
+
+// c ? a : b, opaque to the compiler: a chain of plain selects between
+// slots may be folded into one load at a computed address, and the slots
+// then move from registers to local memory.
+__device__ __forceinline__ int pick(bool c, int a, int b) {
+  int r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %3, 0;\n\t"
+      "selp.b32 %0, %1, %2, p;\n\t}"
+      : "=r"(r) : "r"(a), "r"(b), "r"(static_cast<int>(c)));
+  return r;
+}

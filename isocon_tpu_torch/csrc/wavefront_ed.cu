@@ -118,17 +118,6 @@ __device__ __forceinline__ int cell(int up, int down, int diag, int qc,
                         qc == tc ? diag : ceil_val);
 }
 
-// c ? a : b, opaque to the compiler: a chain of plain selects between
-// slots may be folded into one load at a computed address, and the slots
-// then move from registers to local memory.
-__device__ __forceinline__ int pick(bool c, int a, int b) {
-  int r;
-  asm("{\n\t.reg .pred p;\n\tsetp.ne.s32 p, %3, 0;\n\t"
-      "selp.b32 %0, %1, %2, p;\n\t}"
-      : "=r"(r) : "r"(a), "r"(b), "r"(static_cast<int>(c)));
-  return r;
-}
-
 // Slot k's value (a runtime slot, the same in every lane), in every lane.
 template <int C>
 __device__ __forceinline__ int slot_value(const int (&X)[C], int k) {

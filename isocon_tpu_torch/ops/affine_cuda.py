@@ -39,6 +39,18 @@ def affine_fwd(pool: torch.Tensor, qrow: torch.Tensor, trow: torch.Tensor,
     if pool.device.type == "cpu":
         return sg_forward_plain(pool[qrow.long()], pool[trow.long()], n, m,
                                 match, mismatch, gopen, gext, Wp)
+    return affine_fwd_cuda(pool, qrow, trow, n, m, match, mismatch, gopen,
+                           gext, Wp=Wp, warps=0)
+
+
+def affine_fwd_cuda(pool: torch.Tensor, qrow: torch.Tensor,
+                    trow: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                    match: torch.Tensor, mismatch: torch.Tensor,
+                    gopen: torch.Tensor, gext: torch.Tensor, *, Wp: int,
+                    warps: int):
+    """K3's launch on CUDA tensors.  ``warps``: the register kernel's warps
+    a pair (1, 2 or 4; 0 lets the launch size choose, as ``affine_fwd``
+    does), so that its forms can be timed at one batch size."""
     if Wp not in KERNEL_WPS:
         raise ValueError("no affine kernel for band width %d" % Wp)
     if pool.dtype != torch.uint8 or pool.shape[1] % 8:
@@ -54,9 +66,11 @@ def affine_fwd(pool: torch.Tensor, qrow: torch.Tensor, trow: torch.Tensor,
     dirs = torch.empty((B, S, W), dtype=torch.uint8, device=dev)
     if B == 0:
         return best, ei, ej, dirs
+    # the register kernel's pair counter; the C entry zeroes it
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     args = [pool.contiguous(), _i32(qrow), _i32(trow), _i32(n), _i32(m),
             _i32(match), _i32(mismatch), _i32(gopen), _i32(gext),
-            best, ei, ej, dirs]
+            best, ei, ej, dirs, counter]
     for a in args:
         if a.device != dev:
             raise ValueError("affine inputs on mixed devices")
@@ -64,7 +78,8 @@ def affine_fwd(pool: torch.Tensor, qrow: torch.Tensor, trow: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.isocon_affine_fwd(*[P(a.data_ptr()) for a in args],
                                ctypes.c_int(B), ctypes.c_int(pool.shape[1]),
-                               ctypes.c_int(Wp), ctypes.c_int(S), P(stream))
+                               ctypes.c_int(Wp), ctypes.c_int(S),
+                               ctypes.c_int(warps), P(stream))
     _build.check(rc, "affine_fwd")
     _build.LAUNCHES["affine_fwd"] += 1
     return best, ei, ej, dirs

@@ -67,6 +67,7 @@ def test_build_table_lists_every_kernel():
         "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
         "isocon_affine_walk", "isocon_wavefront_ed"}
     assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
+    assert len(_build._SIGNATURES["isocon_affine_fwd"]) == 20
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
@@ -183,8 +184,10 @@ def _affine_inputs(seed, B, L, dev):
         torch.int32)
 
 
-@pytest.mark.parametrize("Wp", [256, 512, 1024])
+@pytest.mark.parametrize("Wp", [256, 512, 1024, 2048])
 def test_affine_kernels_match_plain(Wp):
+    """K3 (the register kernel at 256 .. 1024, the block kernel at 2048)
+    and K4 against their plain versions on every entry."""
     dev = _card()
     pool, plen, ia, ib, ma, mi, go, ge = _affine_inputs(5, 128, 1024, dev)
     got = tac.sg_align_pool(pool, plen, ia, ib, ma, mi, go, ge, Wp=Wp)
@@ -198,6 +201,97 @@ def test_affine_kernels_match_plain(Wp):
         assert torch.equal(g, w)
     if Wp == 256:
         assert bool(got[6].any())
+
+
+def _affine_ragged_pairs(seed, B, L, Wp):
+    """Pairs of lengths 0, 1, 40, L and any in turn, each length with each
+    kind: noisy copies, t ahead of q and q ahead of t by an offset at the
+    band's edge (one sequence ending first, or well first: the endpoint on
+    column m or row n where it enters the band), identical pairs, unrelated
+    pairs (endpoint ties) and offsets outside the band (overflow)."""
+    rs = np.random.default_rng(seed)
+    q = np.full((B, L), 6, np.int8)
+    t = np.full((B, L), 6, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    W = Wp // 2
+    rand = lambda k: rs.choice(_ALPHA[:4], size=k)
+    for b in range(B):
+        n = (0, 1, 40, L, int(rs.integers(2, L)))[b % 5]
+        a = rand(n)
+        kind = (b // 5) % 6
+        P = W - 3 + b % 7                 # an offset at the band's edge
+        cut = 20 + b % 2 * (W + 20)       # t (q) ends first, or well first
+        if kind == 0:
+            o = np.where(rs.random(n) < 0.03, rand(n), a)[rs.random(n) >= 0.02]
+        elif kind == 1:
+            o = np.concatenate([rand(P), a[:max(0, n - cut)]])
+        elif kind == 2:
+            o = np.concatenate([a[P:], rand(cut)])
+        elif kind == 3:
+            o = a.copy()
+        elif kind == 4:
+            o = rs.choice(_ALPHA, size=int(rs.integers(0, L + 1)))
+        else:
+            o = np.concatenate([rand(W + 10 + b % 50), a])
+            if b % 2:
+                a, o = o, a
+        a, o = a[:L], o[:L]
+        q[b, :a.size] = a
+        t[b, :o.size] = o
+        ql[b], tl[b] = a.size, o.size
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("Wp", [256, 512, 1024])
+def test_affine_register_kernel_ragged_batch(Wp):
+    """K3's register kernel and K4 against their plain versions on every
+    entry of four launches back to back: one warp a pair on more pairs than
+    the persistent grid can have warps (an SM holds at most 64), so each
+    warp takes several pairs of very different lengths in turn, then once
+    more on fewer (the pair counter is zeroed for each launch); four warps
+    a pair (B <= 2 SMs) on 151 and 100 pairs.  Then each form forced at a
+    launch size that would choose the other: four warps a pair on 453
+    pairs, one warp on 151 and 100."""
+    dev = _card()
+    L, B0 = (1504 if Wp == 1024 else 1200), 151
+    q, t, ql, tl = _affine_ragged_pairs(Wp, B0, L, Wp)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), L, dev)
+    k = torch.arange(B0, device=dev)
+    ma = torch.full((B0,), 2, dtype=torch.int32, device=dev)
+    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
+    go = torch.tensor([2, 3], dtype=torch.int32, device=dev)[k % 2]
+    ge = torch.tensor([0, 1, 2], dtype=torch.int32, device=dev)[k % 3]
+    n, m = plen[:B0], plen[B0:]
+    best, ei, ej, dirs = ta.sg_forward_plain(pool[:B0], pool[B0:], n, m, ma,
+                                             mi, go, ge, Wp)
+    want = (best, ei, ej) + ta.sg_walk_plain(dirs, ei, ej, Wp,
+                                             int((n + m).max()) + 1)
+    assert bool(want[6].any()) and bool((want[0] == 0).any())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert B0 <= 2 * sms < 3 * B0
+    for B, warps in ((64 * sms + B0, 0), (3 * B0, 0), (B0, 0), (100, 0),
+                     (3 * B0, 4), (B0, 1), (100, 1)):
+        idx = (torch.arange(B, device=dev) * 7) % B0   # every pair, mixed
+        before = _build.LAUNCHES["affine_fwd"]
+        if warps:
+            best, ei, ej, dirs = tac.affine_fwd_cuda(
+                pool, idx, idx + B0, n[idx], m[idx], ma[idx], mi[idx],
+                go[idx], ge[idx], Wp=Wp, warps=warps)
+            got = (best, ei, ej) + tac.affine_walk(
+                dirs, ei, ej, Wp=Wp, nops=int((n[idx] + m[idx]).max()) + 1)
+        else:
+            got = tac.sg_align_pool(pool, plen, idx, idx + B0, ma[idx],
+                                    mi[idx], go[idx], ge[idx], Wp=Wp)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["affine_fwd"] == before + 1
+        for g, w in zip(got, want):
+            w = w[idx]
+            if g.dim() == 2:    # ops: as wide as this batch's longest walk
+                assert not w[:, g.shape[1]:].any()
+                w = w[:, :g.shape[1]]
+            assert torch.equal(g, w)
 
 
 def _wavefront_code_pairs(seed, B, L):
@@ -214,9 +308,9 @@ def _wavefront_code_pairs(seed, B, L):
 
 
 def test_smoke_reads_register_kernel_report():
-    """Needs no card: ``chip_smoke.py`` reads the band, mode, registers and
-    spills of each instantiation of K5's register kernel from ptxas'
-    report, and nothing of the other kernels."""
+    """Needs no card: ``chip_smoke.py`` reads the kernel, band, mode,
+    registers and spills of each instantiation of K3's and K5's register
+    kernels from ptxas' report, and nothing of the other kernels."""
     import chip_smoke
 
     spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
@@ -236,11 +330,56 @@ def test_smoke_reads_register_kernel_report():
         "    16 bytes stack frame, 16 bytes spill stores, 28 bytes spill "
         "loads",
         "ptxas info    : Used 40 registers, used 0 barriers"])
+    affine = "\n".join([
+        "== affine_sg ==",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_117affine"
+        "_fwd_kernelILi4EEEvPKhPKi' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 30 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_118affine"
+        "_warp_kernelILi16ELi1EEEvPKhPKi' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 168 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_118affine"
+        "_warp_kernelILi1ELi4EEEvPKhPKi' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_118affine"
+        "_warp_kernelILi4ELi1EEEvPKhPKi' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 64 registers, used 0 barriers"])
     other = "== myers_ed ==\nptxas info    : Used 64 registers"
-    assert chip_smoke.register_kernel_report([other, entry]) == [
-        ("Wp 128 NW", 40, "16 bytes stack frame, 16 bytes spill stores, "
+    assert chip_smoke.register_kernel_report([other, entry, affine]) == [
+        ("K3 Wp 256, warps a pair: 1", 64, spill),
+        ("K3 Wp 256, warps a pair: 4", 40, spill),
+        ("K3 Wp 1024, warps a pair: 1", 168, spill),
+        ("K5 Wp 128 NW", 40, "16 bytes stack frame, 16 bytes spill stores, "
          "28 bytes spill loads"),
-        ("Wp 256 HW", 72, spill)]
+        ("K5 Wp 256 HW", 72, spill)]
+
+
+def test_smoke_k3_mean_launch_batch_is_the_table_batch_prefix():
+    """Needs no card: ``chip_smoke.py`` holds K3 at the runs' mean launch
+    sizes to its own result on the first pairs of the table shapes' batch,
+    and ``tools/kernel_time.py`` times the mean launches on ``k3_batch`` of
+    that size: the two are the same pairs with the same scores."""
+    import chip_smoke
+
+    big = chip_smoke.k3_batch(torch, np, "cpu", 1200)
+    small = chip_smoke.k3_batch(torch, np, "cpu", 917)
+    assert torch.equal(big[0], small[0])
+    for x, y in zip(big[1:], small[1:]):
+        assert torch.equal(x[:917], y)
+    pool = big[0]
+    plen = torch.arange(pool.shape[0], dtype=torch.int32)
+    qrow = torch.tensor([5, 9, 2, 7, 1, 3])
+    chunk = (pool, plen, qrow, qrow + 512)
+    long_batch = chip_smoke.k3_batch(torch, np, "cpu", 4, chunk)
+    assert torch.equal(long_batch[1], qrow[:4])
+    assert torch.equal(long_batch[3], plen[qrow[:4]])
+    assert torch.equal(long_batch[4], plen[qrow[:4] + 512])
+    for x, y in zip(big[5:], long_batch[5:]):
+        assert torch.equal(x[:4], y)
 
 
 @pytest.mark.parametrize("hw_mode", [False, True], ids=["nw", "hw"])
