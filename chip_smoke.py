@@ -28,8 +28,8 @@ On one NVIDIA GPU (sm_90a) this script
    oracle on a sample; in the timing phase once more at the timed shapes:
    K5 on the engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
-   shape (band 512, L = 32,768) on a slice of the timed batch, K3 at the
-   runs' mean launch sizes against its own launch at the table shape;
+   shape (band 512, L = 32,768) on a slice of the timed batch, K3/K4 at
+   the runs' mean launch sizes against their launch at the table shape;
 4. runs ``pipeline`` (phase 1, ``get_candidates``, then phase 2,
    ``stat_filter``) through ``isocon_tpu_torch.cli`` on the card on the
    10,000-read workload (``isocon_tpu_torch.workload``), with every kernel
@@ -43,10 +43,11 @@ On one NVIDIA GPU (sm_90a) this script
    in the 32,768-wide bucket, where the edit distances run K5), against
    the ``"long"`` block of the same file;
 5. times each kernel and its plain version with CUDA events at the main
-   path's shapes and computes each kernel's bound (``bound_ms``); also K5
-   at band 256, K3/K4 at the long run's shape and K3 at the runs' mean
-   launch sizes (917 pairs at band 256, L = 2048; 119 at band 512,
-   L = 32,768), without timing their plain versions;
+   path's shapes and computes each kernel's bound (``bound_ms``; K4's is
+   also bounded by the chain of its longest walk); also K5 at band 256,
+   K3/K4 at the long run's shape and K3/K4 at the runs' mean launch sizes
+   (917 pairs at band 256, L = 2048; 119 at band 512, L = 32,768), without
+   timing their plain versions;
 6. prints one JSON line with the kernels, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +103,12 @@ AFFINE_OPS_PER_DIAGONAL = 2
 # Walk, per step: loop test 3, (d, o) 2, overflow test 2, lane and
 # diagonal index 4, direction bits 3, state and coordinate update 2.
 WALK_OPS_PER_STEP = 16
+# The walk is a chain: each step's direction byte picks the next step's
+# address, so a pair takes at least its steps times the latency of one
+# dependent load from shared memory (where K4 stages the bytes).  About 30
+# cycles on Hopper: Luo et al., "Benchmarking and Dissecting the Nvidia
+# Hopper GPU Architecture" (2024), shared-memory load latency of the H800.
+SHARED_LOAD_CYCLES = 30
 # Wavefront, per DP cell (Wp/2 a diagonal), with the min-plus forms the
 # card has (sm_90's DPX instructions; their rate is not published, and it
 # is taken as the integer rate): the minimum of the two neighbours and the
@@ -128,14 +135,18 @@ def log(msg: str) -> None:
     print("[%7.1fs] %s" % (time.perf_counter() - T0, msg), flush=True)
 
 
-def bound_ms(nbytes, ops, clock_mhz):
-    """(least time in ms, "bytes" or "operations"): the larger of the bytes
-    a function must move over 3.35 TB/s and its int32 operations over 132
-    SMs x 64 lanes x the SM clock."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / (SMS * INT32_LANES_PER_SM * clock_mhz * 1e6) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+def bound_ms(nbytes, ops, clock_mhz, chain_steps=0):
+    """(least time in ms, "bytes", "operations" or "chain"): the largest of
+    the bytes a function must move over 3.35 TB/s, its int32 operations
+    over 132 SMs x 64 lanes x the SM clock and, for a chain of dependent
+    steps (K4's longest walk), its steps x ``SHARED_LOAD_CYCLES`` at the SM
+    clock."""
+    terms = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": ops / (SMS * INT32_LANES_PER_SM * clock_mhz * 1e6) * 1e3,
+        "chain": chain_steps * SHARED_LOAD_CYCLES / (clock_mhz * 1e6) * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def nvidia_smi(query: str) -> str:
@@ -365,7 +376,8 @@ def phase_build(_build, native):
 def register_kernel_report(build_log):
     """(kernel, band and mode, registers, spill line) of each instantiation
     of the register kernels in ptxas' report: K3's (one per band and warps
-    a pair) and K5's (one per band and mode)."""
+    a pair) and K5's (one per band and mode), and of K4's walk kernel (one
+    per tile size)."""
     import re
 
     out = []
@@ -378,12 +390,16 @@ def register_kernel_report(build_log):
                 k3 = re.search(r"affine_warp_kernelILi(\d+)ELi(\d+)E", line)
                 k5 = re.search(r"wavefront_warp_kernelILi(\d+)ELb([01])E",
                                line)
-                kernel = ("K3 Wp %d, warps a pair: %s" % (
-                    64 * int(k3.group(1)) * int(k3.group(2)), k3.group(2))
-                          if k3 else
-                          "K5 Wp %d %s" % (64 * int(k5.group(1)), "HW" if
-                                           k5.group(2) == "1" else "NW")
-                          if k5 else None)
+                k4 = re.search(r"affine_walk_kernelILi(\d+)E", line)
+                kernel = None
+                if k3:
+                    kernel = "K3 Wp %d, warps a pair: %s" % (
+                        64 * int(k3.group(1)) * int(k3.group(2)), k3.group(2))
+                elif k4:
+                    kernel = "K4 rows %s a tile" % k4.group(1)
+                elif k5:
+                    kernel = "K5 Wp %d %s" % (64 * int(k5.group(1)), "HW" if
+                                              k5.group(2) == "1" else "NW")
             elif kernel and "spill" in line:
                 spill = line.strip()
             elif kernel and "Used" in line:
@@ -832,18 +848,40 @@ def time_k3(torch, acu, batch, Wp, warps=0):
     return ms, got, nbytes, ops, shape + (" warps=%d" % warps if warps else "")
 
 
+def time_k4(torch, acu, dirs, ei, ej, Wp, nops, shape):
+    """K4 on K3's direction bytes: (kernel ms, the result, bytes, int32
+    operations, chain steps, shape), the ms the mean of 3 calls after a
+    warm-up.  A walk's steps are the opcodes of its row that are not
+    OP_NONE.  Bytes: a direction byte a step and (ei, ej) read, the ops
+    rows and (fi, fj, ov) written; operations: ``WALK_OPS_PER_STEP`` a
+    step; chain: the longest walk's steps (``bound_ms``)."""
+    k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+    k4()
+    ms, got = _time(torch, k4, 3)
+    B = ei.shape[0]
+    per_pair = (got[0] != 0).sum(dim=1)
+    steps = float(per_pair.to(torch.float64).sum())
+    chain = int(per_pair.max()) if B else 0
+    return (ms, got, steps + B * 8 + B * nops + B * 12,
+            steps * WALK_OPS_PER_STEP, chain, shape)
+
+
 def time_k3_mean_launch(torch, acu, batch, Wp, B, nops, wants, res, name):
     """K3 on the first B pairs of ``batch`` (the run's mean launch size),
-    into ``res[name]``, and K4's walk of its direction bytes.  Each of
-    ``wants`` is a (best, ei, ej, ops, fi, fj, ov) of the batch's first k
-    pairs that the launch's first k pairs are held to.  Returns the max abs
-    error of K3 and of K4."""
+    into ``res[name]``, and K4's walk of its direction bytes, timed into
+    ``res`` under the same name with ``affine_walk`` for ``affine_fwd``.
+    Each of ``wants`` is a (best, ei, ej, ops, fi, fj, ov) of the batch's
+    first k pairs that the launch's first k pairs are held to.  Returns the
+    max abs error of K3 and of K4."""
     part = tuple(x[:B] for x in batch[1:])
     ms, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(
         torch, acu, (batch[0],) + part, Wp)
-    res[name] = (ms, None, nbytes, ops, shape)
-    got = (best, ei, ej) + tuple(acu.affine_walk(dirs, ei, ej, Wp=Wp,
-                                                 nops=nops))
+    res[name] = (ms, None, nbytes, ops, shape, 0)
+    ms4, walk, nbytes, ops, chain, _ = time_k4(torch, acu, dirs, ei, ej, Wp,
+                                               nops, shape)
+    res[name.replace("affine_fwd", "affine_walk")] = (ms4, None, nbytes, ops,
+                                                      shape, chain)
+    got = (best, ei, ej) + tuple(walk)
     del dirs
     err3 = err4 = 0
     for want in wants:
@@ -900,7 +938,7 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
             "version on every entry (%.1f s)" % ("HW" if hw_mode else "NW",
                                                  shape,
                                                  time.perf_counter() - t0))
-        res[name] = (ms, plain_ms, nbytes, ops, shape)
+        res[name] = (ms, plain_ms, nbytes, ops, shape, 0)
 
     # K3 / K4 at the long run's shape: align_pairs on the 32,768-wide pool
     Wp, S = 512, 12
@@ -910,14 +948,10 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
     nops = int((n + m).max()) + 1
     ms3, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(torch, acu,
                                                             batch, Wp)
-    res["affine_fwd (long)"] = (ms3, None, nbytes, ops, shape)
-    k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
-    k4()
-    ms4, walk = _time(torch, k4, 3)
-    fi, fj = walk[1], walk[2]
-    steps = float(((ei - fi) + (ej - fj) + 1).to(torch.float64).sum())
-    res["affine_walk (long)"] = (ms4, None, steps + B * 8 + B * nops + B * 12,
-                                 steps * WALK_OPS_PER_STEP, shape)
+    res["affine_fwd (long)"] = (ms3, None, nbytes, ops, shape, 0)
+    ms4, walk, nbytes, ops, chain, _ = time_k4(torch, acu, dirs, ei, ej, Wp,
+                                               nops, shape)
+    res["affine_walk (long)"] = (ms4, None, nbytes, ops, shape, chain)
     del dirs
     torch.cuda.empty_cache()
     # held to the plain versions on the batch's first S pairs: the plain
@@ -937,9 +971,9 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
     log("K3+K4 %s, the first %d pairs of the timed batch: equal to the "
         "plain versions on every entry (%.1f s)"
         % (shape, S, time.perf_counter() - t0))
-    # the long run's mean launch, 119 pairs (four warps a pair): its
+    # the long run's mean launch, 119 pairs (K3 four warps a pair): its
     # first S pairs held to the same plain results, all 119 to the 512-pair
-    # launch (one warp a pair)
+    # launch (K3 one warp a pair)
     Bm = 119
     kernel = tuple(x[:Bm] for x in (best, ei, ej) + tuple(walk))
     e3, e4 = time_k3_mean_launch(torch, acu, batch, Wp, Bm, nops,
@@ -961,7 +995,7 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     at band 128 on a 16,384-pair chunk (the engine's K5 chunk) of noisy
     16.5-20 kb copies, L = 32,768, NW and HW.  Kernel times only: K5 NW at
     band 256 on the same chunk, K3/K4 at the long run's shape (band 512 on
-    a 512-pair batch of such copies, L = 32,768) and K3 at the runs' mean
+    a 512-pair batch of such copies, L = 32,768) and K3/K4 at the runs' mean
     launch sizes (the first 917 pairs of the 8192, the first 119 of the
     512).  Each reading of K3, K4 and K5 is also held to the plain version:
     on every entry (K5; K3 and K4's walk of its bytes on the 8192-pair
@@ -990,7 +1024,8 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
         peq[qrow.long()], pool[trow.long()], n, m, L=L, win=win), 1)
     ops = float(m.to(torch.float64).sum()) * win * MYERS_OPS_PER_WORD
     nbytes = (pool.numel() + peq.numel() * 4 + B * 4 * 4 + B * 4)
-    res["myers_ed"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win))
+    res["myers_ed"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win),
+                       0)
 
     # K2: the same chunk size and window, the pair as given ----------------
     q, t, ql, tl = hw_pairs(np, B0, L)
@@ -1008,7 +1043,8 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     cols = float(torch.maximum(n, m).to(torch.float64).sum())
     ops = cols * (win * MYERS_OPS_PER_WORD + MYERS_HW_WALK_OPS_PER_COLUMN)
     nbytes = (pool.numel() + peq.numel() * 4 + B * 4 * 4 + B * 8)
-    res["myers_hw"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win))
+    res["myers_hw"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win),
+                       0)
 
     # K3 / K4 --------------------------------------------------------------
     Wp = 256
@@ -1018,13 +1054,10 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     nops = int((n + m).max()) + 1
     ms3, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(torch, acu,
                                                             batch, Wp)
-    res["affine_fwd"] = (ms3, None, nbytes, ops, shape)
-    k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
-    k4()
-    ms4, (ops4, fi, fj, ov) = _time(torch, k4, 3)
-    steps = float(((ei - fi) + (ej - fj) + 1).to(torch.float64).sum())
-    res["affine_walk"] = (ms4, None, steps + B * 8 + B * nops + B * 12,
-                          steps * WALK_OPS_PER_STEP, shape)
+    res["affine_fwd"] = (ms3, None, nbytes, ops, shape, 0)
+    ms4, (ops4, fi, fj, ov), nbytes, ops, chain, _ = time_k4(
+        torch, acu, dirs, ei, ej, Wp, nops, shape)
+    res["affine_walk"] = (ms4, None, nbytes, ops, shape, chain)
     del dirs
     torch.cuda.empty_cache()
     plain3, (pb, pei, pej, pdirs) = _time(torch, lambda: (
@@ -1055,8 +1088,8 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     errs["affine_walk"] = max(errs["affine_walk"], err4)
 
     out = {}
-    for name, (kms, pms, nbytes, ops, shape) in res.items():
-        bms, by = bound_ms(nbytes, ops, clock_mhz)
+    for name, (kms, pms, nbytes, ops, shape, chain) in res.items():
+        bms, by = bound_ms(nbytes, ops, clock_mhz, chain)
         out[name] = dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
                          shape=shape)
         log("%-19s %s: kernel %.3f ms, plain %s, bound %.3f ms (%s), "
@@ -1140,7 +1173,10 @@ def main() -> None:
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": errs[kname], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": None,
+            # this line names two limits; K4's chain is one of operations
+            # (its steps' dependent latency), logged above as "chain"
+            "bound_by": ("operations" if tm["bound_by"] == "chain"
+                         else tm["bound_by"]), "library_ms": None,
         })
     log("no library call computes these functions: library_ms is null")
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,7 @@
 // and reads n + m code bytes: the operations outweigh the bytes about four
 // times.  Each pair is a chain of n + m - 1 dependent anti-diagonals, so the
 // card is kept busy by running many pairs at once.  K4: latency of one
-// dependent 1-byte load per step, n + m steps per pair.
+// dependent load per walk step, up to n + m steps per pair (a chain).
 //
 // Geometry (parity-compacted band, W lanes, every lane a real cell): on
 // anti-diagonal d = i + j lane u holds offset o = j - i = 2u + AE on even d
@@ -67,8 +67,9 @@
 //
 // Both write direction bytes to a global [B, S, W] scratch, the layout K4
 // reads.  Parity compaction here is plain index arithmetic, not the TPU's
-// two-pairs-per-plane packing, which is not carried over.  K4: one thread
-// per pair walks the scratch backward and writes contiguous opcodes.
+// two-pairs-per-plane packing, which is not carried over.  K4: one warp
+// per pair walks the scratch backward over tiles staged in shared memory
+// and writes contiguous opcodes (see the walk kernel).
 #include "isocon_cuda.h"
 
 namespace {
@@ -640,64 +641,186 @@ affine_fwd_kernel(const uint8_t* __restrict__ pool,
   }
 }
 
-__global__ void __launch_bounds__(128)
+// The card's SM count, read once: the process drives one card.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return sms;
+}
+
+// ---------------------------------------------------------------------------
+// walk kernel (K4): one warp per pair over staged tiles of direction bytes
+// ---------------------------------------------------------------------------
+// The walk is one chain of dependent byte reads: the byte at (d, o) picks
+// the next (d, o).  It reads lane u = clamp((o - ap) >> 1) of row
+// dd = d - 2, and a step moves d down by 1 or 2 and u by at most one lane
+// over any two diagonals (even d -> odd d - 1: u or u + 1; odd -> even: u or
+// u - 1; a diagonal step keeps u; the clamp cannot add drift).  So a tile
+// of TD rows (dd0 - TD, dd0] by the lanes u0 - TD/2 .. u0 + TD/2, anchored
+// at the step that left the last tile, holds every byte the walk reads
+// until it leaves those rows: a pair loads at most ceil(S / TD) + 1 tiles
+// (tests/test_torch_walk_tiles.py emulates this addressing on the CPU).
+// The tile's lane window starts on a 16-byte boundary (TD + 16 lanes) and
+// lies inside [0, W); the whole warp copies it with 16-byte cp.async, one
+// round trip to device memory for TD rows, and the chain then waits on
+// shared memory instead.  All 32 lanes run the state machine in lockstep on
+// the same values and read the same shared byte (a broadcast), so no lane
+// diverges.  A step is straight-line code with one branch, the loop's: the
+// state machine as selects (sg_walk_plain's form).  Written as branches,
+// with a tile test and a ring test a step, it took some 350 cycles a step;
+// as it is, some 140 (clock64 per warp on an H100, PERF.md).  Opcodes
+// collect in a 128-byte ring in shared memory that the warp writes out
+// every 128 steps and at the end, 32 consecutive bytes a store
+// instruction.  A persistent grid of four warps a block takes pairs from
+// an atomic counter, so a launch of a few pairs still spreads over the SMs
+// and a short walk does not hold a long one back.
+constexpr int kRing = 128;
+
+template <int TD>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 affine_walk_kernel(const uint8_t* __restrict__ dirs,
                    const int* __restrict__ ei, const int* __restrict__ ej,
                    uint8_t* __restrict__ ops, int* __restrict__ fi_out,
                    int* __restrict__ fj_out, int* __restrict__ ov_out,
-                   int B, int S, int Wp, int nops) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+                   int* next_pair, int B, int S, int Wp, int nops) {
+  constexpr int WL = TD + 16;             // lanes of a tile row
+  constexpr int CH = WL / 16;             // 16-byte chunks of a tile row
+  constexpr int COPIES = TD * CH / kWarp; // chunks a lane copies
+  static_assert(TD * CH % kWarp == 0, "a tile is whole chunks a lane");
+  // indexed directly (not through a generic pointer), so that a step's
+  // shared-memory address is plain arithmetic
+  __shared__ __align__(16) uint8_t tiles[kWarpsPerBlock][TD * WL];
+  __shared__ uint8_t rings[kWarpsPerBlock][kRing];
+  const int wi = threadIdx.x >> 5;
+  const int lane = threadIdx.x & (kWarp - 1);
   const int W = Wp / 2;
   const int AE = -(Wp / 2 - 2);
   const int AO = AE - 1;
   const int o_lo = AO;
-  const uint8_t* drow = dirs + static_cast<size_t>(b) * S * W;
-  uint8_t* orow = ops + static_cast<size_t>(b) * nops;
-  int i = ei[b], j = ej[b], st = 0, ov = 0;
-  for (int k = 0; k < nops; ++k) {
-    if (!(i > 0 && j > 0 && st != 3)) break;   // inactive for good
-    const int d = i + j;
-    const int o = j - i;
-    if (o <= o_lo || o >= o_lo + Wp - 1) ov = 1;
-    const int ap = (d & 1) ? AO : AE;
-    const int u = min(max((o - ap) >> 1, 0), W - 1);
-    const int dd = min(max(d - 2, 0), S - 1);
-    const int bits = drow[static_cast<size_t>(dd) * W + u];
-    const int hd = bits & 3;
-    const bool e_opened = (bits & 4) != 0;
-    const bool f_opened = (bits & 8) != 0;
-    int op = OP_NONE;
-    if (st == 0) {
-      if (hd == H_START) {
-        st = 3;
-      } else if (hd == H_DIAG) {
-        op = OP_DIAG;
-        --i;
-        --j;
-      } else if (hd == H_FROME) {
-        op = OP_GAPQ;
-        --j;
-        st = e_opened ? 0 : 1;
-      } else {
-        op = OP_GAPT;
-        --i;
-        st = f_opened ? 0 : 2;
+  const int first_taken = gridDim.x * kWarpsPerBlock;
+  int b = blockIdx.x * kWarpsPerBlock + wi;
+
+  while (b < B) {
+    const uint8_t* drow = dirs + static_cast<size_t>(b) * S * W;
+    uint8_t* orow = ops + static_cast<size_t>(b) * nops;
+    int i = ei[b], j = ej[b], st = 0, ov = 0;
+    // the tile holds rows top - TD + 1 .. top, lanes ulo .. ulo + WL - 1
+    int top = -1, ulo = 0;
+    int k = 0;
+    bool active = i > 0 && j > 0;
+    while (active && k < nops) {
+      // the step's read: row dd, lane u.  (o - ap) >> 1 with ap = AO on
+      // odd d and AE on even d is (o - AE + 1) >> 1: o and d have the same
+      // parity and AE is even.
+      int o = j - i;
+      int u = min(max((o - AE + 1) >> 1, 0), W - 1);
+      int dd = min(max(i + j - 2, 0), S - 1);
+      if (static_cast<unsigned>(top - dd) >= static_cast<unsigned>(TD) ||
+          static_cast<unsigned>(u - ulo) >= static_cast<unsigned>(WL)) {
+        top = dd;
+        ulo = min(max(u - TD / 2, 0) & ~15, W - WL);
+        const uint8_t* src = drow + ulo;
+        __syncwarp();                // every lane is done with the old tile
+        // straight into shared memory (cp.async, 16 bytes a copy, no
+        // registers), all copies of the tile in flight at once
+#pragma unroll
+        for (int s = 0; s < COPIES; ++s) {
+          const int c = s * kWarp + lane;
+          const int row = top - TD + 1 + c / CH;
+          if (row >= 0) {            // rows below 0 are never read
+            const unsigned dst = static_cast<unsigned>(
+                __cvta_generic_to_shared(&tiles[wi][c * 16]));
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+                             "r"(dst),
+                         "l"(src + static_cast<size_t>(row) * W + c % CH * 16)
+                         : "memory");
+          }
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncwarp();
       }
-    } else if (st == 1) {
-      op = OP_GAPQ;
-      --j;
-      st = e_opened ? 0 : 1;
-    } else {
-      op = OP_GAPT;
-      --i;
-      st = f_opened ? 0 : 2;
+      // steps until the walk leaves the tile, ends or fills the ring: one
+      // branch a step.  The state machine is sg_walk_plain's, as selects.
+      const int ring_end = min((k | (kRing - 1)) + 1, nops);
+      do {
+        if (o <= o_lo || o >= o_lo + Wp - 1) ov = 1;
+        const int bits = tiles[wi][(dd - top + TD - 1) * WL + (u - ulo)];
+        const int hd = bits & 3;
+        const bool e_opened = (bits & 4) != 0;
+        const bool f_opened = (bits & 8) != 0;
+        const bool in_h = st == 0;
+        const bool hit_start = in_h && hd == H_START;
+        const bool act_diag = in_h && hd == H_DIAG;
+        const bool act_e = (in_h && hd == H_FROME) || st == 1;
+        const bool act_f = (in_h && hd == H_FROMF) || st == 2;
+        const int op = act_diag ? OP_DIAG
+                       : act_e  ? OP_GAPQ
+                       : act_f  ? OP_GAPT
+                                : OP_NONE;
+        rings[wi][k & (kRing - 1)] = static_cast<uint8_t>(op);
+        i -= (act_diag || act_f) ? 1 : 0;
+        j -= (act_diag || act_e) ? 1 : 0;
+        st = hit_start ? 3
+             : act_diag ? 0
+             : act_e    ? (e_opened ? 0 : 1)
+             : act_f    ? (f_opened ? 0 : 2)
+                        : st;
+        ++k;
+        active = i > 0 && j > 0 && st != 3;
+        o = j - i;
+        u = min(max((o - AE + 1) >> 1, 0), W - 1);
+        dd = min(max(i + j - 2, 0), S - 1);
+      } while (active && k < ring_end &&
+               static_cast<unsigned>(top - dd) < static_cast<unsigned>(TD) &&
+               static_cast<unsigned>(u - ulo) < static_cast<unsigned>(WL));
+      if ((k & (kRing - 1)) == 0) {  // the ring is full: write it out
+        __syncwarp();
+#pragma unroll
+        for (int s = 0; s < kRing; s += kWarp)
+          orow[k - kRing + s + lane] = rings[wi][s + lane];
+        __syncwarp();
+      }
     }
-    orow[k] = static_cast<uint8_t>(op);
+    __syncwarp();
+    const int base = k & ~(kRing - 1);
+    for (int s = lane; s < k - base; s += kWarp)
+      orow[base + s] = rings[wi][s];
+    if (lane == 0) {
+      fi_out[b] = i;
+      fj_out[b] = j;
+      ov_out[b] = ov;
+    }
+    int nb = 0;
+    if (lane == 0) nb = atomicAdd(next_pair, 1) + first_taken;
+    b = __shfl_sync(kFull, nb, 0);   // also: the ring is free again
   }
-  fi_out[b] = i;
-  fj_out[b] = j;
-  ov_out[b] = ov;
+}
+
+template <int TD>
+int launch_walk(const uint8_t* dirs, const int* ei, const int* ej,
+                uint8_t* ops, int* fi, int* fj, int* ov, int* counter, int B,
+                int S, int Wp, int nops, cudaStream_t stream) {
+  auto kernel = affine_walk_kernel<TD>;
+  constexpr int threads = kWarpsPerBlock * kWarp;
+  static const int per_sm = [=] {
+    int v = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&v, kernel, threads, 0);
+    return v;
+  }();
+  const int sms = sm_count();
+  if (sms <= 0 || per_sm <= 0) return cudaErrorInvalidConfiguration;
+  const cudaError_t rc = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int needed = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int resident = sms * per_sm;
+  const int grid = needed < resident ? needed : resident;
+  kernel<<<grid, threads, 0, stream>>>(dirs, ei, ej, ops, fi, fj, ov,
+                                       counter, B, S, Wp, nops);
+  return isocon_launch_status();
 }
 
 // The forward kernels' arguments, typed once.
@@ -725,17 +848,6 @@ int launch_fwd(const FwdArgs& a, int B, int Lp, int Wp, int S,
                                a.mis, a.gop, a.gex, a.best, a.ei, a.ej,
                                a.dirs, Lp, Wp, S);
   return isocon_launch_status();
-}
-
-// The card's SM count, read once: the process drives one card.
-int sm_count() {
-  static const int sms = [] {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return sms;
 }
 
 template <int C, int K>
@@ -824,19 +936,30 @@ ISOCON_API int isocon_affine_fwd(const void* pool, const void* qrow,
   }
 }
 
-// Traceback walk over the dirs scratch; ops [B, nops] must arrive zeroed
-// (OP_NONE): the walk writes only the steps it takes.
+// Traceback walk over the dirs scratch [B, S, Wp/2] that isocon_affine_fwd
+// wrote, for the bands it accepts (Wp = 256 .. 8192); ops [B, nops] must
+// arrive zeroed (OP_NONE): the walk writes only the steps it takes.
+// tile_rows: the rows of a staged tile, 64 (the only size compiled; the
+// wrapper's WALK_TILE_ROWS).  counter: one int32 of device memory, the
+// pair counter of the persistent grid (zeroed here).  dirs must be 16-byte
+// aligned.  Anything else returns cudaErrorInvalidValue.
 ISOCON_API int isocon_affine_walk(const void* dirs, const void* ei,
                                   const void* ej, void* ops, void* fi,
-                                  void* fj, void* ov, int B, int S, int Wp,
-                                  int nops, void* stream) {
+                                  void* fj, void* ov, void* counter, int B,
+                                  int S, int Wp, int nops, int tile_rows,
+                                  void* stream) {
   if (B <= 0) return 0;
-  if (Wp < 8 || Wp % 4 || S < 1) return cudaErrorInvalidValue;
-  affine_walk_kernel<<<(B + 127) / 128, 128, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  if (S < 1 || !counter || reinterpret_cast<uintptr_t>(dirs) % 16)
+    return cudaErrorInvalidValue;
+  switch (Wp) {
+    case 256: case 512: case 1024: case 2048: case 4096: case 8192: break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (tile_rows != 64) return cudaErrorInvalidValue;
+  return launch_walk<64>(
       static_cast<const uint8_t*>(dirs), static_cast<const int*>(ei),
       static_cast<const int*>(ej), static_cast<uint8_t*>(ops),
       static_cast<int*>(fi), static_cast<int*>(fj), static_cast<int*>(ov),
-      B, S, Wp, nops);
-  return isocon_launch_status();
+      static_cast<int*>(counter), B, S, Wp, nops,
+      static_cast<cudaStream_t>(stream));
 }

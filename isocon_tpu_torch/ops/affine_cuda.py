@@ -22,9 +22,14 @@ import numpy as np
 import torch
 
 from . import _build
-from .affine import band_consts, sg_forward_plain, sg_walk_plain
+from .affine import sg_forward_plain, sg_walk_plain
 
 KERNEL_WPS = (256, 512, 1024, 2048, 4096, 8192)
+# K4 stages the direction bytes in tiles of this many diagonals (rows of
+# dirs) by WALK_TILE_ROWS + 16 lanes; the C entry takes only the sizes it
+# was compiled for (64), and tests/test_torch_walk_tiles.py emulates the
+# kernel's addressing with this constant.
+WALK_TILE_ROWS = 64
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +95,8 @@ def affine_walk(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, *,
     """K4: -> (ops uint8 [B, nops], fi, fj int32 [B], overflow bool [B])."""
     if dirs.device.type == "cpu":
         return sg_walk_plain(dirs, ei, ej, Wp, nops)
-    band_consts(Wp)
+    if Wp not in KERNEL_WPS:
+        raise ValueError("no affine kernel for band width %d" % Wp)
     lib = _build.load("affine_sg")
     dev = dirs.device
     B, S, W = dirs.shape
@@ -102,13 +108,15 @@ def affine_walk(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, *,
     ov = torch.empty_like(fi)
     if B == 0:
         return ops, fi, fj, ov != 0
-    args = [dirs.contiguous(), _i32(ei), _i32(ej), ops, fi, fj, ov]
+    # the persistent grid's pair counter; the C entry zeroes it
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    args = [dirs.contiguous(), _i32(ei), _i32(ej), ops, fi, fj, ov, counter]
     P = ctypes.c_void_p
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.isocon_affine_walk(*[P(a.data_ptr()) for a in args],
                                 ctypes.c_int(B), ctypes.c_int(S),
                                 ctypes.c_int(Wp), ctypes.c_int(nops),
-                                P(stream))
+                                ctypes.c_int(WALK_TILE_ROWS), P(stream))
     _build.check(rc, "affine_walk")
     _build.LAUNCHES["affine_walk"] += 1
     return ops, fi, fj, ov != 0

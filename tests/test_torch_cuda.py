@@ -68,6 +68,7 @@ def test_build_table_lists_every_kernel():
         "isocon_affine_walk", "isocon_wavefront_ed"}
     assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
     assert len(_build._SIGNATURES["isocon_affine_fwd"]) == 20
+    assert len(_build._SIGNATURES["isocon_affine_walk"]) == 14
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
@@ -294,6 +295,86 @@ def test_affine_register_kernel_ragged_batch(Wp):
             assert torch.equal(g, w)
 
 
+def _walk_pairs(seed, B, L, Wp):
+    """Pairs for K4's tile crossings at band Wp (W = Wp/2 lanes): noisy
+    copies; insertions of W bases in the target and of W - 1 in the query
+    (the path runs on the band's last or first lane: the walk flags
+    overflow and its tiles' lane windows are clipped at the band's edges);
+    insertions of W/2 in either (a gap run of W/2 steps that crosses tiles
+    inside the band); insertions of 2 W (longer than the band); short
+    queries of 0, 1 and 40 codes; unrelated pairs."""
+    rs = np.random.default_rng(seed)
+    q = np.full((B, L), 6, np.int8)
+    t = np.full((B, L), 6, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    W = Wp // 2
+    rand = lambda k: rs.choice(_ALPHA[:4], size=k)
+    for b in range(B):
+        kind = b % 8
+        n = int(rs.integers(L // 4, L // 2))
+        a = rand(n)
+        mid = n // 2
+        ins = (0, W, W - 1, W // 2, W // 2, 2 * W, 0, 0)[kind]
+        extra = rand(min(ins, L - n))
+        if kind == 0:
+            o = np.where(rs.random(n) < 0.03, rand(n), a)[rs.random(n) >= 0.02]
+        elif kind in (1, 4, 5):
+            o = np.concatenate([a[:mid], extra, a[mid:]])
+        elif kind in (2, 3):
+            o = a
+            a = np.concatenate([a[:mid], extra, a[mid:]])
+        elif kind == 6:
+            o = a
+            a = a[:(0, 1, 40)[b // 8 % 3]]
+        else:
+            o = rand(int(rs.integers(1, L)))
+        q[b, :a.size] = a
+        t[b, :o.size] = o
+        ql[b], tl[b] = a.size, o.size
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("Wp", [256, 1024, 2048])
+def test_affine_walk_kernel_tile_crossings(Wp):
+    """K4 alone against ``sg_walk_plain`` on every entry, on the direction
+    bytes K3 writes (its register kernel at 256 and 1024, its block kernel
+    at 2048) for ``_walk_pairs`` of up to 4096 codes: gap runs that cross
+    many tiles, walks on both band edges, band overflow.  At band 256 also
+    on a ragged batch of those walks larger than the persistent grid can
+    hold (an SM holds at most 64 warps), so each warp walks several pairs
+    of very different lengths in turn."""
+    dev = _card()
+    L, B0 = 4096, 24
+    q, t, ql, tl = _walk_pairs(Wp, B0, L, Wp)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), L, dev)
+    k = torch.arange(B0, device=dev)
+    full = lambda v: torch.full((B0,), v, dtype=torch.int32, device=dev)
+    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
+    ge = (k % 2).to(torch.int32)
+    n, m = plen[:B0], plen[B0:]
+    best, ei, ej, dirs = tac.affine_fwd(pool, k, k + B0, n, m, full(2), mi,
+                                        full(2), ge, Wp=Wp)
+    nops = int((n + m).max()) + 1
+    want = ta.sg_walk_plain(dirs, ei, ej, Wp, nops)
+    ov = want[3].cpu().numpy()
+    assert ov[1::8].all() and ov[2::8].all() and not ov[::8].any()
+    before = _build.LAUNCHES["affine_walk"]
+    got = tac.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["affine_walk"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if Wp == 256:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        idx = (torch.arange(64 * sms + B0, device=dev) * 7) % B0
+        got = tac.affine_walk(dirs[idx], ei[idx], ej[idx], Wp=Wp, nops=nops)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[idx])
+
+
 def _wavefront_code_pairs(seed, B, L):
     """``_code_pairs`` plus what the wavefront's edge rules see: infix
     pairs, queries far longer than their target, lengths 0 and 1."""
@@ -356,6 +437,46 @@ def test_smoke_reads_register_kernel_report():
         ("K5 Wp 128 NW", 40, "16 bytes stack frame, 16 bytes spill stores, "
          "28 bytes spill loads"),
         ("K5 Wp 256 HW", 72, spill)]
+
+
+def test_smoke_reads_walk_kernel_report():
+    """Needs no card: ``chip_smoke.py`` (and ``tools/kernel_time.py``)
+    report the registers and spills of K4's walk kernel, one line per tile
+    size, beside K3's register kernels."""
+    import chip_smoke
+
+    spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    affine = "\n".join([
+        "== affine_sg ==",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_118affine"
+        "_walk_kernelILi64EEEvPKhPKiS4_PhPiS6_S6_S6_iiii' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 38 registers, used 0 barriers, 21504 bytes smem",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_118affine"
+        "_warp_kernelILi4ELi1EEEvPKhPKi' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 64 registers, used 0 barriers"])
+    assert chip_smoke.register_kernel_report([affine]) == [
+        ("K3 Wp 256, warps a pair: 1", 64, spill),
+        ("K4 rows 64 a tile", 38, spill)]
+
+
+def test_smoke_walk_bound_counts_the_chain():
+    """Needs no card: K4's bound is the largest of its bytes, its
+    operations and the chain of its longest walk, steps x
+    ``SHARED_LOAD_CYCLES`` at the SM clock; a kernel without a chain keeps
+    the larger of the first two."""
+    import chip_smoke as cs
+
+    ms, by = cs.bound_ms(1e6, 1e6, 1980.0, 36500)
+    assert by == "chain"
+    assert ms == pytest.approx(36500 * cs.SHARED_LOAD_CYCLES / 1980e6 * 1e3)
+    assert 0.5 < ms < 0.6
+    assert cs.bound_ms(3.35e9, 1e6, 1980.0) == (pytest.approx(1.0), "bytes")
+    assert cs.bound_ms(3.35e9, 1e6, 1980.0, 10)[1] == "bytes"
+    ops = 132 * 64 * 1980e6 * 1e-3          # one ms of int32 operations
+    assert cs.bound_ms(1.0, ops, 1980.0, 10) == (pytest.approx(1.0),
+                                                 "operations")
 
 
 def test_smoke_k3_mean_launch_batch_is_the_table_batch_prefix():

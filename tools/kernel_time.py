@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K3 (the affine forward) or K5 (the banded wavefront) of one tree of
-the port on the card.
+"""Time K3 (the affine forward), K4 (its traceback walk) or K5 (the banded
+wavefront) of one tree of the port on the card.
 
 K5 (``--kernel k5``): at the engine's K5 chunk (``chip_smoke.k5_chunk``:
 16,384 pairs of noisy 16.5-20 kb copies, L = 32,768), NW and HW, for each
@@ -11,21 +11,24 @@ and 119 pairs of the chunk's copies at band 512, L = 32,768; or, with
 ``--pairs``, those batch sizes at each band of ``--wp`` (L = 32,768 with
 ``--long``, else 2048).  ``--warps`` times each K3 shape with each number
 of warps a pair of the register kernel (1 or 4; 0, the default, lets the
-launch size choose, as the main path does).  For each
-reading the kernel's ms and its bound, as this tree's ``chip_smoke.time_k3``
-/ ``time_k5`` and ``chip_smoke.bound_ms`` compute them.  Prints the card's
-name and power limit, the register kernels' ptxas registers and spills, and
-one JSON line per reading.  The result is not checked here:
-``chip_smoke.py`` holds it to the plain version at the same shapes.
+launch size choose, as the main path does).  K4 (``--kernel k4``): at the
+same shapes, K3 runs once for the direction bytes and only the walk is
+timed.  For each reading the kernel's ms and its bound with its limiting
+term, as this tree's ``chip_smoke.time_k3`` / ``time_k4`` / ``time_k5``
+and ``chip_smoke.bound_ms`` compute them.  Prints the card's name and
+power limit, the ptxas registers and spills of the register kernels and
+of K4's walk kernel, and one JSON line per reading.  The result is not
+checked here: ``chip_smoke.py`` holds it to the plain version at the same
+shapes.
 
 ``--root DIR`` runs the kernel of the tree unpacked in DIR (its
 ``isocon_tpu_torch``) under this tree's timing and bound, so that two trees
 are compared on one card in one call, in turns, one process each:
 
-    python tools/kernel_time.py --kernel k3 --root OLD
-    python tools/kernel_time.py --kernel k3
-    python tools/kernel_time.py --kernel k3
-    python tools/kernel_time.py --kernel k3 --root OLD
+    python tools/kernel_time.py --kernel k4 --root OLD
+    python tools/kernel_time.py --kernel k4
+    python tools/kernel_time.py --kernel k4
+    python tools/kernel_time.py --kernel k4 --root OLD
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ K3_SHAPES = ((8192, 256, False), (917, 256, False), (512, 512, True),
 
 
 def readings(cs, torch, np, dev, args):
-    """(label, ms, bytes, operations, shape) of each timed call."""
+    """(label, ms, bytes, operations, chain steps, shape) of each timed
+    call."""
     chunk = cs.k5_chunk(torch, np, dev)
     if args.kernel == "k5":
         from isocon_tpu_torch.ops import wavefront
@@ -51,7 +55,7 @@ def readings(cs, torch, np, dev, args):
             for hw_mode in (False, True):
                 ms, _got, nbytes, ops, shape = cs.time_k5(
                     torch, wavefront, chunk, Wp, hw_mode)
-                yield "HW" if hw_mode else "NW", ms, nbytes, ops, shape
+                yield "HW" if hw_mode else "NW", ms, nbytes, ops, 0, shape
         return
     from isocon_tpu_torch.ops import affine_cuda as acu
 
@@ -61,25 +65,36 @@ def readings(cs, torch, np, dev, args):
                   for B in args.pairs]
     for B, Wp, long_copies in shapes:
         batch = cs.k3_batch(torch, np, dev, B, chunk if long_copies else None)
+        if args.kernel == "k4":
+            _ms, (_best, ei, ej, dirs), _nb, _ops, shape = cs.time_k3(
+                torch, acu, batch, Wp)
+            nops = int((batch[3] + batch[4]).max()) + 1
+            ms, got, nbytes, ops, chain, shape = cs.time_k4(
+                torch, acu, dirs, ei, ej, Wp, nops, shape)
+            del got, dirs
+            torch.cuda.empty_cache()
+            yield "walk", ms, nbytes, ops, chain, shape
+            continue
         for warps in args.warps:
             ms, got, nbytes, ops, shape = cs.time_k3(torch, acu, batch, Wp,
                                                      warps)
             del got
             torch.cuda.empty_cache()
-            yield "fwd", ms, nbytes, ops, shape
+            yield "fwd", ms, nbytes, ops, 0, shape
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k3", "k5"), required=True)
+    ap.add_argument("--kernel", choices=("k3", "k4", "k5"), required=True)
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--wp", type=int, nargs="+",
-                    help="bands (K5: default 128 256; K3: with --pairs, "
+                    help="bands (K5: default 128 256; K3/K4: with --pairs, "
                     "default 256)")
     ap.add_argument("--pairs", type=int, nargs="+",
-                    help="K3's batch sizes in place of the standard shapes")
+                    help="K3's (K4's) batch sizes in place of the standard "
+                    "shapes")
     ap.add_argument("--long", action="store_true",
-                    help="K3 with --pairs: the long copies, L = 32,768")
+                    help="K3/K4 with --pairs: the long copies, L = 32,768")
     ap.add_argument("--warps", type=int, nargs="+", default=[0],
                     help="K3's warps a pair (0: by launch size)")
     args = ap.parse_args()
@@ -101,8 +116,9 @@ def main() -> None:
     _build.build_all()
     for kname, regs, spill in cs.register_kernel_report(_build.BUILD_LOG):
         print("register kernel %s: %d registers, %s" % (kname, regs, spill))
-    for label, ms, nbytes, ops, shape in readings(cs, torch, np, dev, args):
-        bound, by = cs.bound_ms(nbytes, ops, clock_mhz)
+    for label, ms, nbytes, ops, chain, shape in readings(cs, torch, np, dev,
+                                                         args):
+        bound, by = cs.bound_ms(nbytes, ops, clock_mhz, chain)
         print(json.dumps({
             "tree": os.path.relpath(root, HERE), "kernel": args.kernel,
             "mode": label, "shape": shape, "ms": ms, "bound_ms": bound,
