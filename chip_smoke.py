@@ -8,8 +8,8 @@ On one NVIDIA GPU (sm_90a) this script
 2. builds the port's CUDA kernels from ``isocon_tpu_torch/csrc`` with nvcc
    and the host traceback library with g++, and prints the build seconds
    and ptxas' register / shared-memory / spill report (and the registers
-   and spills of K3's register kernel per band and of K5's per band and
-   mode);
+   and spills of K3's register kernel per band, of K5's per band and
+   mode and of K1's and K2's band kernel per window);
 3. holds every kernel against its plain PyTorch version on the card, at
    the main path's shapes, with exact equality on every entry (all outputs
    are integer DP results): K1 (banded Myers ED) and K2 (HW-mode / infix
@@ -26,7 +26,8 @@ On one NVIDIA GPU (sm_90a) this script
    clamped and out-of-band pairs, queries longer than their target, empty
    spans and lengths 0 and 1, certified entries also against the numpy
    oracle on a sample; in the timing phase once more at the timed shapes:
-   K5 on the engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
+   K1 and K2 on the engine's chunk of 262,144 pairs at win 7, K5 on the
+   engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
    shape (band 512, L = 32,768) on a slice of the timed batch, K3/K4 at
    the runs' mean launch sizes against their launch at the table shape;
@@ -74,14 +75,42 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SMS = 132
 INT32_LANES_PER_SM = 64
 # 32-bit operations of the recurrences, index arithmetic not counted.
-# Myers, per window word and text column: Peq select 1, Xv 1, Xh 4 (and,
-# add, xor, or), Ph 3, Mh 1, carry-out shifts 2, shift-in 4, Pv 3, Mv 1.
-MYERS_OPS_PER_WORD = 20
-# K2's row-n walk, per text column on top of the words: the two delta
-# bits 4 (shift and mask twice), their difference 1, walk add 1, the wn
-# latch 2 (compare, select), the running minimum 5 (three compares, two
-# ands) and its two selects 2.
-MYERS_HW_WALK_OPS_PER_COLUMN = 15
+# Myers, per window word and text column, with the fused forms sm_90 has
+# (three-input LOP3, the funnel shift SHF.L.W that gives (cur << 1) |
+# (prev >> 31) in one instruction), counted per pipe.  An SM's ALU pipe
+# (LOP3, shifts, compares, selects) takes 64 lanes a clock, its FMA pipe
+# another 64 for the integer multiply-adds (IMAD and its forms), and it
+# issues 128 lanes a clock in all; shared loads go to the load/store unit
+# and are not counted.  ALU only, the bit logic: Eq | carry 1, & Pv 1, Xh 1
+# (one LOP3, (sum ^ Pv) | Eq), Ph 1 (one LOP3, Mv | ~(Xh | Pv)), Mh 1, Pv 2
+# (Mh' | ~(Eq | Mv | Ph'), four inputs), Mv 1 (one LOP3, Ph' & (Eq | Mv)).
+# Either pipe: + Pv 1, the carry bit of the previous word's Mh 1 (a shift,
+# or IMAD.HI of x and 2), the two shifted words 2 (a funnel shift each, or
+# x * 2 + carry in an IMAD).  Their IMAD forms take up to 7 FMA slots a
+# word, under the ALU's 8, so a kernel could run at the ALU term.  Not
+# counted: the Peq load (a shared load).  Earlier counts: 20 as written
+# (Xh 4, Ph 3, Pv 3, the carries 6: two shifts out, two shifts in, two
+# ors), then 13 with every operation and the Peq load at the ALU's rate.
+MYERS_ALU_OPS_PER_WORD = 8
+MYERS_ANY_OPS_PER_WORD = 4
+# Per text column: the Peq slot of the column's code 1 (an address,
+# code x stride + base, on either pipe); the code itself is a shared load.
+# K1 needs nothing else a column: the answer D'[n][m] is read once from the
+# banded table (the row above the window and the vertical sum down to row
+# n, popcounts), where the TPU kernel sums the diagonal's four delta bits
+# and row n's walk every column.  Not counted, because they come once a
+# phase of 32 columns or once a pair: those popcounts, the window's shift
+# and the staging copies.
+MYERS_ANY_OPS_PER_COLUMN = 1
+# K2's row-n walk, per column where row n's word is in the window.  ALU
+# only: the two delta bits' masks 2, the running minimum's three compares
+# chained through one predicate 3 and its two selects 2.  Either pipe: the
+# delta bits' two shifts 2 and the walk's add 1.  Earlier counts: 15 (the
+# bits' difference apart, the compares' two ands as written and a latch of
+# the walk at column n, which the anchor read from the table replaces, on
+# every column), then 10 at the ALU's rate.
+MYERS_HW_WALK_ALU_OPS_PER_COLUMN = 7
+MYERS_HW_WALK_ANY_OPS_PER_COLUMN = 3
 # Affine, per band cell of the steady diagonals, with the fused forms sm_90
 # has (DPX add-max and max of three, three-input LOP3): substitution score
 # 2 (code compare, select of match or mismatch), diagonal add 1, E 3 (open
@@ -116,8 +145,7 @@ SHARED_LOAD_CYCLES = 30
 # diagonal or the ceiling 1, and the add-min 1 (min(a + 1, b));
 # min(min(up, down) + 1, diag + (q != t)) capped at the ceiling is
 # min(min(up, down, diag) + 1, q == t ? diag : ceiling) for
-# diag <= ceiling.  Written out without DPX it is 6.  The Myers counts
-# above take each operation as written (no LOP3).  Per diagonal, not per
+# diag <= ceiling.  Written out without DPX it is 6.  Per diagonal, not per
 # cell: the pad test of the one code that enters it (compare, select).
 # Not counted, because the function does not need them in every cell: the
 # grid's boundary (only the first Wp/2 of some 36,500 diagonals can touch
@@ -138,9 +166,9 @@ def log(msg: str) -> None:
 def bound_ms(nbytes, ops, clock_mhz, chain_steps=0):
     """(least time in ms, "bytes", "operations" or "chain"): the largest of
     the bytes a function must move over 3.35 TB/s, its int32 operations
-    over 132 SMs x 64 lanes x the SM clock and, for a chain of dependent
-    steps (K4's longest walk), its steps x ``SHARED_LOAD_CYCLES`` at the SM
-    clock."""
+    over 132 SMs x 64 lanes x the SM clock (K1's and K2's are counted per
+    pipe, ``myers_work``) and, for a chain of dependent steps (K4's longest
+    walk), its steps x ``SHARED_LOAD_CYCLES`` at the SM clock."""
     terms = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
         "operations": ops / (SMS * INT32_LANES_PER_SM * clock_mhz * 1e6) * 1e3,
@@ -376,13 +404,14 @@ def phase_build(_build, native):
 def register_kernel_report(build_log):
     """(kernel, band and mode, registers, spill line) of each instantiation
     of the register kernels in ptxas' report: K3's (one per band and warps
-    a pair) and K5's (one per band and mode), and of K4's walk kernel (one
-    per tile size)."""
+    a pair) and K5's (one per band and mode), of K4's walk kernel (one per
+    tile size) and of K1's and K2's band kernel (one per window)."""
     import re
 
     out = []
     for entry in build_log:
-        if not entry.startswith(("== affine_sg", "== wavefront_ed")):
+        if not entry.startswith(("== affine_sg", "== wavefront_ed",
+                                 "== myers_ed")):
             continue
         kernel = spill = None
         for line in entry.splitlines():
@@ -391,6 +420,8 @@ def register_kernel_report(build_log):
                 k5 = re.search(r"wavefront_warp_kernelILi(\d+)ELb([01])E",
                                line)
                 k4 = re.search(r"affine_walk_kernelILi(\d+)E", line)
+                k1 = re.search(r"myers_band_kernelILi(\d+)ELi\d+ELb([01])E",
+                               line)
                 kernel = None
                 if k3:
                     kernel = "K3 Wp %d, warps a pair: %s" % (
@@ -400,6 +431,9 @@ def register_kernel_report(build_log):
                 elif k5:
                     kernel = "K5 Wp %d %s" % (64 * int(k5.group(1)), "HW" if
                                               k5.group(2) == "1" else "NW")
+                elif k1:
+                    kernel = "K%s win %s" % ("2" if k1.group(2) == "1" else
+                                             "1", k1.group(1))
             elif kernel and "spill" in line:
                 spill = line.strip()
             elif kernel and "Used" in line:
@@ -761,6 +795,99 @@ def _time(torch, fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def myers_batch(torch, np, myers, dev, B, hw=False, L=2048):
+    """K1's (``hw``: K2's) timed input: B pairs cycled over the 4096 of
+    ``myers_pairs`` (K2: ``hw_pairs``), L = 2048, so a smaller B is the
+    first B pairs of a larger one; K1's pair swapped so that n <= m, K2's as
+    given.  Returns (pool, peq, qrow, trow, n, m), the last four int32."""
+    B0 = 4096
+    q, t, ql, tl = (hw_pairs if hw else myers_pairs)(np, B0, L)
+    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+    peq = myers.peq_table(pool, plen)
+    ia = torch.arange(B, dtype=torch.int64, device=dev) % B0
+    if hw:
+        qrow, trow, n, m = ia, ia + B0, plen[ia], plen[ia + B0]
+    else:
+        qrow, trow, n, m = myers._swap(plen, ia, ia + B0)
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return pool, peq, i32(qrow), i32(trow), i32(n), i32(m)
+
+
+def myers_columns(n, m, win, hw, L=2048):
+    """The text columns each pair of lengths (n, m) needs of K1 (``hw``:
+    K2) at window ``win`` and padded length L, int64: up to m (K2: max(n,
+    m)), or only up to J* = 32 x (nword + HALF + 1), where row n's word
+    leaves the window, if the window moves below it (nwords - WIN > nword);
+    later columns change nothing."""
+    import torch
+
+    n = n.to(torch.int64)
+    m = m.to(torch.int64)
+    half, nwords = win // 2, L // 32
+    nword = torch.div(n - 1, 32, rounding_mode="floor")
+    last = torch.maximum(n, m) if hw else m
+    stop = torch.where(nwords - win > nword, 32 * (nword + half + 1), last)
+    return torch.where(nword >= 0, torch.minimum(last, stop),
+                       torch.zeros_like(last))
+
+
+def myers_work(n, m, win, hw, L=2048):
+    """int32 operations of K1 (``hw``: K2) at window ``win`` and padded
+    length L on pairs of lengths (n, m), over ``myers_columns``, in the ALU
+    pipe's lanes that ``bound_ms`` divides by: the larger of the ALU-only
+    operations and half of all (ALU-only and either pipe), since the ALU
+    and FMA pipes take 128 lanes an SM together.  K2 walks row n on those
+    columns where its word is in the window, from phase max(nword - HALF,
+    0) (from phase 0 if nword < WIN)."""
+    import torch
+
+    each = myers_columns(n, m, win, hw, L)
+    cols = float(each.sum())
+    alu = cols * win * MYERS_ALU_OPS_PER_WORD
+    any_pipe = cols * (win * MYERS_ANY_OPS_PER_WORD + MYERS_ANY_OPS_PER_COLUMN)
+    if hw:
+        nword = torch.div(n.to(torch.int64) - 1, 32, rounding_mode="floor")
+        enter = torch.where(nword < win, torch.zeros_like(nword),
+                            nword - win // 2)
+        walked = float((each - 32 * enter).clamp(min=0).sum())
+        alu += walked * MYERS_HW_WALK_ALU_OPS_PER_COLUMN
+        any_pipe += walked * MYERS_HW_WALK_ANY_OPS_PER_COLUMN
+    return max(alu, (alu + any_pipe) / 2)
+
+
+def warp_balance(cols):
+    """Share of a warp's issue slots its lanes use when each of the 32
+    consecutive pairs of a warp sweeps ``cols`` columns in phases of 32 and
+    the warp runs until its longest: sum of the lanes' phases over 32 x the
+    warps' longest."""
+    import torch
+
+    ph = torch.div(cols.to(torch.int64) + 31, 32, rounding_mode="floor")
+    pad = (-ph.numel()) % 32
+    ph = torch.cat([ph, ph.new_zeros(pad)]).view(-1, 32)
+    longest = float(ph.max(dim=1).values.sum()) * 32
+    return float(ph.sum()) / longest if longest else 1.0
+
+
+def time_myers(torch, myers, batch, win, hw, reps=5):
+    """K1 (``hw``: K2) at window ``win`` on ``myers_batch``'s pairs: (kernel
+    ms, the last call's result, bytes, int32 operations, shape).  The ms is
+    the mean of ``reps``
+    calls after a warm-up (CUDA events); bytes: the pool and Peq table read
+    once, four int32 a pair read and one (K2: two) written; operations:
+    ``myers_work``."""
+    pool, peq, qrow, trow, n, m = batch
+    B, L = qrow.shape[0], pool.shape[1]
+    call = lambda: myers._myers_cuda(pool, peq, qrow, trow, n, m, L=L,
+                                     win=win, full=False, hw=hw)
+    call()
+    ms, got = _time(torch, call, reps)
+    nbytes = pool.numel() + peq.numel() * 4 + B * 4 * 4 + B * (8 if hw else 4)
+    return (ms, got, nbytes, myers_work(n, m, win, hw, L),
+            "B=%d win=%d" % (B, win))
+
+
 def k5_chunk(torch, np, dev):
     """K5's timed input, the engine's chunk: ``WAVE_BATCH`` pairs cycled
     over the noisy 16.5-20 kb copies of ``wavefront_long_pairs`` (seed 7)
@@ -990,8 +1117,9 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
 
 def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     """Kernel and plain-version times at the main paths' shapes: K1 and K2
-    at win 7 on a 262,144-pair chunk (the engine's ED chunk), K3/K4 at band
-    256 on an 8192-pair batch (the engine's alignment batch), L = 2048; K5
+    at win 7 on a 262,144-pair chunk (the engine's ED chunk,
+    ``myers_batch``), K3/K4 at band 256 on an 8192-pair batch (the engine's
+    alignment batch), L = 2048; K5
     at band 128 on a 16,384-pair chunk (the engine's K5 chunk) of noisy
     16.5-20 kb copies, L = 32,768, NW and HW.  Kernel times only: K5 NW at
     band 256 on the same chunk, K3/K4 at the long run's shape (band 512 on
@@ -1001,50 +1129,29 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     on every entry (K5; K3 and K4's walk of its bytes on the 8192-pair
     batch and its first 917), or on the first pairs of the batch (K3/K4 at
     the long shape, on 512 and on 119 pairs; all 119 are also held to the
-    512-pair launch).  Returns the readings and the max abs error of each
-    kernel so held."""
+    512-pair launch).  K1 and K2 are held to theirs on every entry of the
+    timed chunk.  Returns the readings and the max abs error of each kernel
+    so held."""
     res = {}
+    myers_errs = {}
 
-    # K1 -------------------------------------------------------------------
-    L, B0, B = 2048, 4096, 262144
-    q, t, ql, tl = myers_pairs(np, B0, L)
-    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
-    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
-    peq = myers.peq_table(pool, plen)
-    ia = torch.arange(B, dtype=torch.int64, device=dev) % B0
-    qrow, trow, n, m = myers._swap(plen, ia, ia + B0)
-    qrow, trow = qrow.to(torch.int32), trow.to(torch.int32)
-    n, m = n.to(torch.int32), m.to(torch.int32)
-    win = 7
-    k1 = lambda: myers._myers_cuda(pool, peq, qrow, trow, n, m, L=L,
-                                   win=win, full=False, hw=False)
-    k1()
-    ms, _ = _time(torch, k1, 5)
-    plain_ms, _ = _time(torch, lambda: myers.myers_ed_plain(
-        peq[qrow.long()], pool[trow.long()], n, m, L=L, win=win), 1)
-    ops = float(m.to(torch.float64).sum()) * win * MYERS_OPS_PER_WORD
-    nbytes = (pool.numel() + peq.numel() * 4 + B * 4 * 4 + B * 4)
-    res["myers_ed"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win),
-                       0)
-
-    # K2: the same chunk size and window, the pair as given ----------------
-    q, t, ql, tl = hw_pairs(np, B0, L)
-    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
-    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
-    peq = myers.peq_table(pool, plen)
-    qrow, trow = ia.to(torch.int32), (ia + B0).to(torch.int32)
-    n, m = plen[ia], plen[ia + B0]
-    k2 = lambda: myers._myers_cuda(pool, peq, qrow, trow, n, m, L=L,
-                                   win=win, full=False, hw=True)
-    k2()
-    ms, _ = _time(torch, k2, 5)
-    plain_ms, _ = _time(torch, lambda: myers.myers_hw_plain(
-        peq[qrow.long()], pool[trow.long()], n, m, L=L, win=win), 1)
-    cols = float(torch.maximum(n, m).to(torch.float64).sum())
-    ops = cols * (win * MYERS_OPS_PER_WORD + MYERS_HW_WALK_OPS_PER_COLUMN)
-    nbytes = (pool.numel() + peq.numel() * 4 + B * 4 * 4 + B * 8)
-    res["myers_hw"] = (ms, plain_ms, nbytes, ops, "B=%d win=%d" % (B, win),
-                       0)
+    # K1 and K2 at win 7 on the engine's ED chunk -------------------------
+    L, B, win = 2048, 262144, 7
+    for name, hw in (("myers_ed", False), ("myers_hw", True)):
+        batch = myers_batch(torch, np, myers, dev, B, hw)
+        ms, got, nbytes, ops, shape = time_myers(torch, myers, batch, win, hw)
+        pool, peq, qrow, trow, n, m = batch
+        plain = myers.myers_hw_plain if hw else myers.myers_ed_plain
+        plain_ms, want = _time(torch, lambda: plain(
+            peq[qrow.long()], pool[trow.long()], n, m, L=L, win=win), 1)
+        res[name] = (ms, plain_ms, nbytes, ops, shape, 0)
+        myers_errs[name] = check_equal(
+            "%s %s" % (name, shape), list(got) if hw else [got],
+            list(want) if hw else [want])
+        log("%s %s, the timed chunk: equal to the plain version on every "
+            "entry" % (name, shape))
+        del batch, pool, peq, got, want
+        torch.cuda.empty_cache()
 
     # K3 / K4 --------------------------------------------------------------
     Wp = 256
@@ -1086,6 +1193,7 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     errs = time_long_shapes(torch, np, affine, acu, wavefront, dev, res)
     errs["affine_fwd"] = max(errs["affine_fwd"], err3)
     errs["affine_walk"] = max(errs["affine_walk"], err4)
+    errs.update(myers_errs)
 
     out = {}
     for name, (kms, pms, nbytes, ops, shape, chain) in res.items():

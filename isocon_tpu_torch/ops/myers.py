@@ -326,6 +326,8 @@ def _myers_cuda(pool, peq, qrow, trow, n, m, *, L, win, full, hw):
     if not full and win not in _KERNEL_WINS:
         raise ValueError("no Myers kernel for win=%d" % win)
     pool = pool.contiguous()
+    if pool.data_ptr() % 16:
+        raise ValueError("the Myers kernels read the pool in 16-byte words")
     peq = peq.contiguous()
     qrow = qrow.to(torch.int32).contiguous()
     trow = trow.to(torch.int32).contiguous()

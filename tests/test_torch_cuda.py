@@ -158,6 +158,78 @@ def test_myers_hw_kernel_matches_plain(win):
         assert bool((ej == 0).any())
 
 
+def _phase_crossing_pairs(seed, B, L):
+    """Pairs whose sweeps end in every kind of phase of the band kernel at
+    width L: inside the head phases (<= 96 columns), across head -> steady,
+    and across steady -> tail (lengths near L, where the window clips), with
+    N and X codes, n = m, n = 1 and unrelated targets; every third row holds
+    matching codes past its length."""
+    rs = np.random.default_rng(seed)
+    alpha = np.array([0, 1, 2, 3, 5, 4], np.int8)
+    q = np.full((B, L), 6, np.int8)
+    t = np.full((B, L), 6, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b in range(B):
+        kind = b % 4
+        lo, hi = ((1, 96), (97, L - 200), (L - 200, L), (1, L))[kind]
+        n = 1 if b % 29 == 0 else int(rs.integers(lo, hi + 1))
+        m = n if b % 13 == 0 else int(rs.integers(lo, hi + 1))
+        a = rs.choice(alpha, size=n, p=[.22, .22, .22, .22, .08, .04])
+        o = np.concatenate([a, rs.choice(alpha, size=max(m - n, 0))])[:m]
+        hit = rs.random(m) < rs.uniform(0, 0.3)
+        o[hit] = rs.choice(alpha, size=int(hit.sum()))
+        if b % 11 == 5:
+            o = rs.choice(alpha, size=m)
+        q[b, :n], t[b, :m] = a, o
+        if b % 3 == 1:
+            q[b, n:] = rs.integers(0, 4, size=L - n)
+            t[b, m:] = rs.integers(0, 4, size=L - m)
+        ql[b], tl[b] = n, m
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("hw", [False, True], ids=["nw", "hw"])
+@pytest.mark.parametrize("win", [7, 33])
+def test_myers_band_kernel_phase_crossings(win, hw):
+    """K1 / K2's band kernel against its plain version on every entry, on a
+    ragged batch whose pairs end in head phases (W0 = 0), cross head ->
+    steady (W0 = p - HALF) and steady -> tail (W0 = nwords - WIN), or stop
+    where the window has moved below row n."""
+    dev = _card()
+    L, B = 1536, 997
+    q, t, ql, tl = _phase_crossing_pairs(7 + win, B, L)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), L, dev)
+    peq = tm.peq_table(pool, plen)
+    ia = torch.arange(B, dtype=torch.int32, device=dev)
+    ib = ia + B
+    if hw:
+        got = tm.myers_hw_pool(pool, plen, peq, ia, ib, L=L, win=win)
+        n, m = plen[ia.long()], plen[ib.long()]
+        want = tm.myers_hw_plain(peq[ia.long()], pool[ib.long()], n, m, L=L,
+                                 win=win)
+        last = torch.maximum(n, m)
+    else:
+        got = (tm.myers_ed_pool(pool, plen, peq, ia, ib, L=L, win=win),)
+        qrow, trow, n, m = tm._swap(plen, ia.long(), ib.long())
+        want = (tm.myers_ed_plain(peq[qrow], pool[trow], n, m, L=L,
+                                  win=win),)
+        last = m
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    half, nwords = win // 2, L // 32
+    nword = torch.div(n.long() - 1, 32, rounding_mode="floor")
+    stop = torch.where(nwords - win > nword, nword + half + 1,
+                       torch.full_like(nword, nwords))
+    phases = torch.minimum((last.long() + 31) // 32, stop)   # the kernel's
+    assert bool((phases <= half).any())                   # head only
+    assert bool(((phases > half + 1)
+                 & (phases <= nwords - win + half)).any())  # into steady
+    assert bool((phases > nwords - win + half + 1).any())  # into the tail
+
+
 def _affine_inputs(seed, B, L, dev):
     rs = np.random.default_rng(seed)
     q = np.full((B, L), 6, np.int8)
@@ -459,6 +531,117 @@ def test_smoke_reads_walk_kernel_report():
     assert chip_smoke.register_kernel_report([affine]) == [
         ("K3 Wp 256, warps a pair: 1", 64, spill),
         ("K4 rows 64 a tile", 38, spill)]
+
+
+def test_smoke_reads_myers_band_kernel_report():
+    """Needs no card: ``chip_smoke.py`` (and ``tools/kernel_time.py``)
+    report the registers and spills of K1's and K2's band kernel, one line
+    per window and mode, and nothing of the full-width kernel."""
+    import chip_smoke
+
+    spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    entry = "\n".join([
+        "== myers_ed ==",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_117myers"
+        "_full_kernelILb1EEEvPKhPKjPKiS6_S6_S6_PiS7_ii' for 'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 40 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_117myers"
+        "_band_kernelILi33ELi32ELb1EEEvPKhPKjPKiS6_S6_S6_PiS7_iii' for "
+        "'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 128 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN4_GLOBAL__N_117myers"
+        "_band_kernelILi7ELi128ELb0EEEvPKhPKjPKiS6_S6_S6_PiS7_iii' for "
+        "'sm_90a'",
+        "    " + spill,
+        "ptxas info    : Used 48 registers, used 0 barriers"])
+    assert chip_smoke.register_kernel_report([entry]) == [
+        ("K1 win 7", 48, spill), ("K2 win 33", 128, spill)]
+
+
+def test_smoke_myers_work_counts_fused_forms(monkeypatch):
+    """Needs no card: K1's operations are the fused word step times the
+    window plus the column's Peq slot, over the columns a pair needs: up to
+    m, or up to J* = 32 (nword + HALF + 1) where the window moves below row
+    n; K2's over max(n, m) likewise, plus its walk on the columns where row
+    n's word is in the window (from phase nword - HALF once nword >= WIN).
+    They are counted in ALU lanes: the ALU-only operations, or half of all
+    where that is more (the ALU and FMA pipes take 128 lanes together)."""
+    import chip_smoke as cs
+
+    assert (cs.MYERS_ALU_OPS_PER_WORD, cs.MYERS_ANY_OPS_PER_WORD) == (8, 4)
+    alu_col = 7 * cs.MYERS_ALU_OPS_PER_WORD
+    n = torch.tensor([100, 40, 400, 0], dtype=torch.int32)
+    m = torch.tensor([130, 40, 900, 7], dtype=torch.int32)
+    # nword 3, 1, 12, -1: the third stops at 32 * (12 + 4) = 512, the
+    # empty query sweeps nothing
+    assert cs.myers_work(n, m, 7, False) == (130 + 40 + 512) * alu_col
+    # the window never moves below row n at L = 448 (nwords 14 - 7 <= 12)
+    assert cs.myers_work(n, m, 7, False, L=448) == (130 + 40 + 900) * alu_col
+    # K2 on (query 900, target 400): nword 28, enters at phase 25, sweeps
+    # to 32 * (28 + 4) = 1024 > 900; on (100, 130): in the window from 0
+    q = torch.tensor([900, 100], dtype=torch.int32)
+    t = torch.tensor([400, 130], dtype=torch.int32)
+    walk = cs.MYERS_HW_WALK_ALU_OPS_PER_COLUMN
+    assert cs.myers_work(q, t, 7, True) == (
+        (900 + 130) * alu_col + (900 - 32 * 25 + 130) * walk)
+    # where the operations either pipe takes dominate, half of all counts
+    monkeypatch.setattr(cs, "MYERS_ALU_OPS_PER_WORD", 1)
+    monkeypatch.setattr(cs, "MYERS_ANY_OPS_PER_WORD", 11)
+    assert cs.myers_work(n, m, 7, False) == (130 + 40 + 512) * (
+        7 * (1 + 11) + cs.MYERS_ANY_OPS_PER_COLUMN) / 2
+
+
+def test_smoke_warp_balance_counts_the_longest_lane():
+    """Needs no card: a warp of 32 consecutive pairs runs until its longest
+    pair's last phase of 32 columns; the balance is the share of those
+    issue slots the lanes use, and a ragged last warp counts its empty
+    lanes."""
+    import chip_smoke as cs
+
+    assert cs.warp_balance(torch.full((64,), 100)) == 1.0
+    assert cs.warp_balance(torch.tensor([32] * 31 + [64])) == \
+        pytest.approx(33 / 64)
+    assert cs.warp_balance(torch.tensor([5] * 40)) == pytest.approx(40 / 64)
+    cols = cs.myers_columns(torch.tensor([400, 0]), torch.tensor([900, 7]),
+                            7, False)
+    assert cols.tolist() == [512, 0]
+
+
+def test_sass_loops_counts_each_loop():
+    """Needs no card: ``tools/sass_loops.py`` finds each backward branch of
+    a function in ``cuobjdump -sass`` output (label or address targets),
+    counts the opcodes from its target to it and the loops it holds."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "sass_loops.py")
+    spec = importlib.util.spec_from_file_location("sass_loops", path)
+    sl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sl)
+    sass = "\n".join([
+        "\t\tFunction : _ZN4_GLOBAL__N_117myers_band_kernelILi7E",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;",
+        ".L_x_1:",
+        "        /*0010*/                   LDS R2, [R3] ;",
+        "        /*0020*/                   LOP3.LUT R4, R2, R5, RZ, 0xfc, "
+        "!PT ;",
+        "        /*0030*/               @P0 SHF.L.W.U32.HI R6, R4, 0x1, R7 ;",
+        "        /*0040*/              @!P1 BRA `(.L_x_1) ;",
+        "        /*0050*/                   IADD3 R8, R8, 0x1, RZ ;",
+        "        /*0060*/                   BRA 0x10 ;",
+        "        /*0070*/                   EXIT ;"])
+    funcs, labels = sl.parse(sass)
+    (name, insns), = funcs.items()
+    rep = sl.report(insns, labels[name])
+    assert rep["instructions"] == 8
+    inner, outer = rep["loops"]
+    assert (inner["start"], inner["end"], inner["instructions"]) == (
+        "0010", "0040", 4)
+    assert inner["opcodes"] == {"LDS": 1, "LOP3": 1, "SHF": 1, "BRA": 1}
+    assert (outer["instructions"], outer["inner_loops"]) == (6, 1)
 
 
 def test_smoke_walk_bound_counts_the_chain():

@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
-"""Time K3 (the affine forward), K4 (its traceback walk) or K5 (the banded
-wavefront) of one tree of the port on the card.
+"""Time K1 / K2 (the banded Myers NW / HW edit distance), K3 (the affine
+forward), K4 (its traceback walk) or K5 (the banded wavefront) of one tree
+of the port on the card.
 
-K5 (``--kernel k5``): at the engine's K5 chunk (``chip_smoke.k5_chunk``:
-16,384 pairs of noisy 16.5-20 kb copies, L = 32,768), NW and HW, for each
-band asked for (``--wp``, default 128 256).  K3 (``--kernel k3``): at the
+K1 (``--kernel k1``): on ``chip_smoke.myers_batch``'s pairs (L = 2048) at
+win 7 for 262,144 pairs (the engine's ED chunk and the table's shape),
+153,670 (the 10k run's mean phase-1 launch: 13,830,282 pairs in 90) and
+13,560 (its mean phase-2 launch: 488,165 in 36), and at win 9 for 262,144;
+K2 (``--kernel k2``) at win 7 for 262,144; or, with ``--pairs`` and
+``--win``, those batch sizes at each window.  K5 (``--kernel k5``): at
+the engine's K5 chunk (``chip_smoke.k5_chunk``: 16,384 pairs of noisy
+16.5-20 kb copies, L = 32,768), NW and HW, for each band asked for
+(``--wp``, default 128 256).  K3 (``--kernel k3``): at the
 two table shapes and the runs' mean launch sizes of ``chip_smoke.py``
 (``chip_smoke.k3_batch``): 8192 and 917 pairs at band 256, L = 2048; 512
 and 119 pairs of the chunk's copies at band 512, L = 32,768; or, with
@@ -15,9 +22,13 @@ launch size choose, as the main path does).  K4 (``--kernel k4``): at the
 same shapes, K3 runs once for the direction bytes and only the walk is
 timed.  For each reading the kernel's ms and its bound with its limiting
 term, as this tree's ``chip_smoke.time_k3`` / ``time_k4`` / ``time_k5``
-and ``chip_smoke.bound_ms`` compute them.  Prints the card's name and
-power limit, the ptxas registers and spills of the register kernels and
-of K4's walk kernel, and one JSON line per reading.  The result is not
+(``time_myers`` for K1 / K2) and ``chip_smoke.bound_ms`` compute them;
+for K1 / K2 the shape also gives ``chip_smoke.warp_balance`` of the
+batch, the share of issue slots a warp's lanes use when a warp runs until
+its longest pair ends.
+Prints the card's name and power limit, the ptxas registers and spills of
+the register kernels, of K4's walk kernel and of K1 / K2's band kernel, and
+one JSON line per reading.  The result is not
 checked here: ``chip_smoke.py`` holds it to the plain version at the same
 shapes.
 
@@ -42,11 +53,35 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # K3's shapes: (pairs, band, on the long copies)
 K3_SHAPES = ((8192, 256, False), (917, 256, False), (512, 512, True),
              (119, 512, True))
+# K1's and K2's shapes: (pairs, window)
+K1_SHAPES = ((262144, 7), (153670, 7), (13560, 7), (262144, 9))
+K2_SHAPES = ((262144, 7),)
 
 
 def readings(cs, torch, np, dev, args):
     """(label, ms, bytes, operations, chain steps, shape) of each timed
     call."""
+    if args.kernel in ("k1", "k2"):
+        from isocon_tpu_torch.ops import myers
+
+        hw = args.kernel == "k2"
+        shapes = K2_SHAPES if hw else K1_SHAPES
+        if args.pairs:
+            shapes = [(B, w) for w in args.win or (7,) for B in args.pairs]
+        batches = {}
+        for B, win in shapes:
+            if B not in batches:
+                batches.clear()
+                torch.cuda.empty_cache()
+                batches[B] = cs.myers_batch(torch, np, myers, dev, B, hw)
+            ms, _got, nbytes, ops, shape = cs.time_myers(
+                torch, myers, batches[B], win, hw)
+            _pool, _peq, _q, _t, n, m = batches[B]
+            balance = cs.warp_balance(cs.myers_columns(
+                n, m, win, hw, _pool.shape[1]))
+            yield ("HW" if hw else "NW"), ms, nbytes, ops, 0, \
+                "%s warp_balance=%.4f" % (shape, balance)
+        return
     chunk = cs.k5_chunk(torch, np, dev)
     if args.kernel == "k5":
         from isocon_tpu_torch.ops import wavefront
@@ -85,14 +120,17 @@ def readings(cs, torch, np, dev, args):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k3", "k4", "k5"), required=True)
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"),
+                    required=True)
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--wp", type=int, nargs="+",
                     help="bands (K5: default 128 256; K3/K4: with --pairs, "
                     "default 256)")
     ap.add_argument("--pairs", type=int, nargs="+",
-                    help="K3's (K4's) batch sizes in place of the standard "
-                    "shapes")
+                    help="K1's, K2's, K3's (K4's) batch sizes in place of "
+                    "the standard shapes")
+    ap.add_argument("--win", type=int, nargs="+",
+                    help="K1/K2 windows with --pairs (default 7)")
     ap.add_argument("--long", action="store_true",
                     help="K3/K4 with --pairs: the long copies, L = 32,768")
     ap.add_argument("--warps", type=int, nargs="+", default=[0],
