@@ -11,9 +11,10 @@ On one NVIDIA GPU (sm_90a) this script
    and spills of K3's register kernel per band, of K5's per band and
    mode and of K1's and K2's band kernel per window);
 3. holds every kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with exact equality on every entry (all outputs
-   are integer DP results): K1 (banded Myers ED) and K2 (HW-mode / infix
-   Myers: distance and end column) at L = 2048 for windows 7, 9, 17, 33
+   the main path's shapes, with exact equality on every entry (K1-K5's
+   outputs are integer DP results, K6's float32 sums in a fixed order):
+   K1 (banded Myers ED) and K2 (HW-mode / infix Myers: distance and end
+   column) at L = 2048 for windows 7, 9, 17, 33
    and the full width on 4096 seeded pairs each, K2's certified entries
    also against the numpy oracle on a sample; K3 + K4 (affine forward +
    traceback walk) at L = 2048, bands 256, 512 and 1024 (every band of
@@ -25,7 +26,13 @@ On one NVIDIA GPU (sm_90a) this script
    and 2048 (its wide kernel), on seeded pairs that hold uncertified,
    clamped and out-of-band pairs, queries longer than their target, empty
    spans and lengths 0 and 1, certified entries also against the numpy
-   oracle on a sample; in the timing phase once more at the timed shapes:
+   oracle on a sample; K6 (the sketch scores of ``--nontargeted``,
+   sequential-FMA sums) bit for bit on every entry of the [N, N] matrix,
+   launched in the main path's row chunks against the plain version in
+   the same chunks on the card, and their top-20 lists, at N = 2,000 and
+   10,001 on seeded profiles with exact ties and on the first round's
+   real profiles of the nontargeted workload; in the timing phase once
+   more at the timed shapes:
    K1 and K2 on the engine's chunk of 262,144 pairs at win 7, K5 on the
    engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
@@ -42,13 +49,18 @@ On one NVIDIA GPU (sm_90a) this script
    to the JAX package's (``isocon_tpu_torch/smoke_expect.json``); then the
    same for the long-read workload (500 reads of 16.5-20 kb, every pair
    in the 32,768-wide bucket, where the edit distances run K5), against
-   the ``"long"`` block of the same file;
+   the ``"long"`` block of the same file; then ``pipeline --nontargeted``
+   on the 10,000 reads of four gene families (104 isoforms), where K6
+   scores each phase-1 round and K1 rescores the pairs it names with no
+   cap, against the ``"nontargeted"`` block;
 5. times each kernel and its plain version with CUDA events at the main
    path's shapes and computes each kernel's bound (``bound_ms``; K4's is
    also bounded by the chain of its longest walk); also K5 at band 256,
    K3/K4 at the long run's shape and K3/K4 at the runs' mean launch sizes
    (917 pairs at band 256, L = 2048; 119 at band 512, L = 32,768), without
-   timing their plain versions;
+   timing their plain versions; K6 at N = 10,000 (the nontargeted run's
+   first round) with its plain version and, as a yardstick only, the
+   library call ``torch.matmul`` without TF32 (``library_ms``);
 6. prints one JSON line with the kernels, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -69,11 +81,19 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_READS = 10000                 # the 10k-read workload of phase 4
+N_READS = 10000                 # the 10k-read workloads of phase 4
+NONTARGETED_FAMILIES = 4        # gene families of the nontargeted one
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SMS = 132
 INT32_LANES_PER_SM = 64
+# float32 FMA lanes an SM (4 x 32): 132 x 128 x 2 flops x 1,980 MHz is the
+# published 67 TFLOP/s of float32 outside the tensor cores
+FP32_LANES_PER_SM = 128
+# K6, per output: the sketch sum's D fmas (one each, on the FP32 pipe), and
+# the two subtractions (length difference, diagonal) counted in every
+# entry; the length difference's integer abs and conversion not counted
+SKETCH_OPS_PER_OUTPUT = 2
 # 32-bit operations of the recurrences, index arithmetic not counted.
 # Myers, per window word and text column, with the fused forms sm_90 has
 # (three-input LOP3, the funnel shift SHF.L.W that gives (cur << 1) |
@@ -163,15 +183,17 @@ def log(msg: str) -> None:
     print("[%7.1fs] %s" % (time.perf_counter() - T0, msg), flush=True)
 
 
-def bound_ms(nbytes, ops, clock_mhz, chain_steps=0):
+def bound_ms(nbytes, ops, clock_mhz, chain_steps=0,
+             lanes=INT32_LANES_PER_SM):
     """(least time in ms, "bytes", "operations" or "chain"): the largest of
-    the bytes a function must move over 3.35 TB/s, its int32 operations
-    over 132 SMs x 64 lanes x the SM clock (K1's and K2's are counted per
-    pipe, ``myers_work``) and, for a chain of dependent steps (K4's longest
-    walk), its steps x ``SHARED_LOAD_CYCLES`` at the SM clock."""
+    the bytes a function must move over 3.35 TB/s, its operations over 132
+    SMs x ``lanes`` x the SM clock (int32: 64 lanes, K1's and K2's counted
+    per pipe, ``myers_work``; float32 FMA: 128) and, for a chain of
+    dependent steps (K4's longest walk), its steps x ``SHARED_LOAD_CYCLES``
+    at the SM clock."""
     terms = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-        "operations": ops / (SMS * INT32_LANES_PER_SM * clock_mhz * 1e6) * 1e3,
+        "operations": ops / (SMS * lanes * clock_mhz * 1e6) * 1e3,
         "chain": chain_steps * SHARED_LOAD_CYCLES / (clock_mhz * 1e6) * 1e3}
     by = max(terms, key=terms.get)
     return terms[by], by
@@ -649,6 +671,100 @@ def phase_check_wavefront(torch, np, wavefront, oracle, dev):
     return err
 
 
+def sketch_inputs(torch, np, N, dev, seed=0, D=512):
+    """K6's seeded input: square-rooted Poisson(3) k-mer counts, float32
+    [N, D], every fifth row a copy of an earlier one (exact ties) and row 3
+    all zero, and lengths of 700-1,899."""
+    rs = np.random.default_rng(seed)
+    prof = rs.poisson(3, size=(N, D)).astype(np.float32)
+    for r in range(5, N, 5):
+        prof[r] = prof[r // 2]
+    prof[3] = 0
+    lens = rs.integers(700, 1900, N).astype(np.int32)
+    return (torch.sqrt(torch.from_numpy(prof)).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def nontargeted_profiles(torch, np, dev, work):
+    """The first round's sketch input of the nontargeted run: the sorted
+    unique reads of ``write_reads(path, N_READS, families=4)``, their
+    square-rooted k-mer profiles and lengths, as ``approximate_matches``
+    makes them."""
+    from isocon_tpu_torch.graph.sketch import kmer_profile
+    from isocon_tpu_torch.io import read_fasta
+    from isocon_tpu_torch.workload import write_reads
+
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "nontargeted_reads.fa")
+    write_reads(path, N_READS, families=NONTARGETED_FAMILIES)
+    seqs = sorted({s for _a, s in read_fasta(path)})
+    os.unlink(path)
+    prof = torch.from_numpy(np.stack([kmer_profile(s) for s in seqs]))
+    lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32)
+    return torch.sqrt(prof).to(dev), lens.to(dev)
+
+
+def sketch_plain_chunks(torch, sk, p, lens):
+    """``sketch_scores_plain`` of all N rows, ``ROW_CHUNK`` rows a call."""
+    N = p.shape[0]
+    return torch.cat([sk.sketch_scores_plain(p, lens, r0,
+                                             min(sk.ROW_CHUNK, N - r0))
+                      for r0 in range(0, N, sk.ROW_CHUNK)])
+
+
+def check_sketch(torch, sk, name, got, want, k=20):
+    """K6's scores against the plain version's, bit for bit on every entry,
+    and the top-k lists of both; returns the max abs error (0.0)."""
+    if got.shape != want.shape:
+        raise AssertionError("%s: shape %s vs plain %s"
+                             % (name, tuple(got.shape), tuple(want.shape)))
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = float((got - want).abs().max())
+    if differ or err:
+        raise AssertionError("K6 %s: %d entries differ from the plain "
+                             "version (max abs err %g)" % (name, differ, err))
+    gv, gi = sk.topn(got, k)
+    wv, wi = sk.topn(want, k)
+    if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
+        raise AssertionError("K6 %s: top-%d lists differ" % (name, k))
+    return err
+
+
+def phase_check_sketch(torch, np, sk, dev, real):
+    """K6 against ``sketch_scores_plain`` on every entry of the [N, N]
+    matrix, launched in the main path's chunks of ``ROW_CHUNK`` rows, the
+    plain version on the card in the same chunks; and the top-20 lists of
+    both: at N = 2,000, at N = 10,001 (ragged tiles and a ragged last
+    chunk) on ``sketch_inputs`` and on ``real``, the first round's profiles
+    of the nontargeted run.  Returns the max abs error and the plain
+    scores of ``real``."""
+    err = 0.0
+    want = None
+    for name, (p, lens) in (("N=2000", sketch_inputs(torch, np, 2000, dev)),
+                            ("N=10001", sketch_inputs(torch, np, 10001, dev,
+                                                      seed=1)),
+                            ("nontargeted round 1", real)):
+        N = p.shape[0]
+        t0 = time.perf_counter()
+        got = torch.cat([sk.sketch_scores(p, lens, r0,
+                                          min(sk.ROW_CHUNK, N - r0))
+                         for r0 in range(0, N, sk.ROW_CHUNK)])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = sketch_plain_chunks(torch, sk, p, lens)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        err = max(err, check_sketch(torch, sk, name, got, want))
+        vals = sk.topn(want, 20)[0]
+        log("K6 %s (%d x %d): equal to the plain version on every entry, "
+            "top-20 lists equal (%d rows hold a tie); kernel %.2f s, plain "
+            "%.1f s" % (name, N, N, int((vals[:, 1:] == vals[:, :-1])
+                                        .any(dim=1).sum()), t1 - t0, t2 - t1))
+        del got
+    torch.cuda.empty_cache()
+    return err, want
+
+
 def _sha256(path):
     with open(path, "rb") as fh:
         data = fh.read()
@@ -658,11 +774,14 @@ def _sha256(path):
 VOLUME = ("ed_pairs", "ed_calls", "align_pairs", "align_calls")
 
 
-def phase_main_path(torch, _build, dev, long_reads=False):
-    """``pipeline`` on the 10,000 reads, or with ``long_reads`` on the
-    500 long reads.  Returns the launches of each kernel over the whole
-    run."""
+def phase_main_path(torch, _build, dev, long_reads=False,
+                    nontargeted=False):
+    """``pipeline`` on the 10,000 reads, with ``long_reads`` on the 500
+    long reads, or with ``nontargeted`` ``pipeline --nontargeted`` on the
+    10,000 reads of four gene families.  Returns the launches of each
+    kernel over the whole run."""
     from isocon_tpu_torch import cli
+    from isocon_tpu_torch.io import read_fasta
     from isocon_tpu_torch.workload import write_long_reads, write_reads
 
     with open(os.path.join(ROOT, "isocon_tpu_torch",
@@ -672,6 +791,12 @@ def phase_main_path(torch, _build, dev, long_reads=False):
         expect = expect["long"]
         label = "long-read pipeline"
         needed = ("wavefront_ed", "affine_fwd", "affine_walk")
+    elif nontargeted:
+        expect = expect["nontargeted"]
+        assert expect["n_reads"] == N_READS
+        assert expect["families"] == NONTARGETED_FAMILIES
+        label = "nontargeted pipeline"
+        needed = ("sketch_scores", "myers_ed", "affine_fwd", "affine_walk")
     else:
         assert expect["n_reads"] == N_READS
         label = "10k pipeline"
@@ -681,14 +806,19 @@ def phase_main_path(torch, _build, dev, long_reads=False):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     reads = os.path.join(work, "reads.fa")
-    (write_long_reads if long_reads else write_reads)(reads, n_reads)
+    if long_reads:
+        isoforms = write_long_reads(reads, n_reads)
+    else:
+        isoforms = write_reads(reads, n_reads, families=(
+            NONTARGETED_FAMILIES if nontargeted else 1))
     out = os.path.join(work, "out")
+    argv = ["pipeline", "-fl_reads", reads, "-outfolder", out, "--device",
+            "cuda"] + (["--nontargeted"] if nontargeted else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     t0 = time.perf_counter()
-    engine, phase1 = cli.main(["pipeline", "-fl_reads", reads, "-outfolder",
-                               out, "--device", "cuda"])
+    engine, phase1 = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
@@ -730,6 +860,23 @@ def phase_main_path(torch, _build, dev, long_reads=False):
         % (c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
            phase1["ed_pairs_wavefront"], c["align_overflows"],
            torch.cuda.max_memory_allocated(dev)))
+    if nontargeted:
+        log("sketch: %d rows in %.2f s in phase 1 (%d K6 launches), %d rows "
+            "in phase 2 (%d launches)"
+            % (phase1["sketch_rows"], phase1["sketch_seconds"],
+               launches1["sketch_scores"],
+               c["sketch_rows"] - phase1["sketch_rows"],
+               launches2["sketch_scores"]))
+        finals = {seq for _a, seq in read_fasta(
+            os.path.join(out, "final_candidates.fa"))}
+        log("information, not a gate: %d of the generator's %d isoforms are "
+            "among the %d final candidates"
+            % (sum(iso in finals for iso in isoforms), len(isoforms),
+               len(finals)))
+    if engine.myers_rungs:
+        log("K1/K2 rungs (mode, window words, 0 = the full width: pairs): "
+            + ", ".join("%s %d: %d" % (mode, win, k) for (mode, win), k in
+                        sorted(engine.myers_rungs.items())))
     if engine.wavefront_rungs:
         log("K5 rungs (mode, band: pairs): " + ", ".join(
             "%s %d: %d" % (mode, Wp, k) for (mode, Wp), k in
@@ -768,6 +915,8 @@ def phase_main_path(torch, _build, dev, long_reads=False):
         if launches[name] <= 0:
             raise AssertionError("%s: kernel %s was not launched"
                                  % (label, name))
+    if nontargeted and launches1["sketch_scores"] <= 0:
+        raise AssertionError("%s: K6 was not launched in phase 1" % label)
     both = needed if long_reads else ("myers_ed", "affine_fwd", "affine_walk")
     for name in both:
         if launches1[name] <= 0 or launches2[name] <= 0:
@@ -1208,6 +1357,57 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     return out, errs
 
 
+def time_sketch(torch, sk, p, lens, want, clock_mhz):
+    """K6 on all N rows of ``p`` in one launch (the main path launches
+    ``ROW_CHUNK`` rows at a time; one launch does the same work), held to
+    the plain scores ``want``: the mean ms of 5 launches after a warm-up,
+    the plain version's ms (``sketch_plain_chunks``), the library call's ms
+    and the bound.  The library call, a comparator only (the port never
+    makes it): ``torch.matmul(p, p.T)`` in float32 without TF32, minus the
+    length differences, minus 1e9 on the diagonal; how many of its entries
+    and top-20 lists differ from K6's is logged.  Bytes: p and the lengths
+    read once, the [N, N] scores written once; operations: D fmas and
+    ``SKETCH_OPS_PER_OUTPUT`` a score, at the float32 FMA rate."""
+    N, D = p.shape
+    k6 = lambda: sk.sketch_scores(p, lens, 0, N)
+    k6()
+    ms, got = _time(torch, k6, 5)
+    err = check_sketch(torch, sk, "timed launch N=%d" % N, got, want)
+    plain_ms, _ = _time(torch, lambda: sketch_plain_chunks(torch, sk, p,
+                                                           lens), 1)
+    ld = lens.to(torch.int64)
+
+    def library():
+        out = torch.matmul(p, p.t())
+        out -= (ld[:, None] - ld[None, :]).abs().to(torch.float32)
+        out.diagonal().sub_(1e9)
+        return out
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        library()
+        library_ms, lib = _time(torch, library, 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rows = int((sk.topn(lib, 20)[1] != sk.topn(got, 20)[1]).any(dim=1).sum())
+    log("K6 N=%d: the library call (torch.matmul, no TF32) differs from K6 "
+        "in %d of %d entries and in %d rows' top-20 lists (max abs %g); it is "
+        "a comparator, not the function"
+        % (N, int((lib != got).sum()), N * N, rows,
+           float((lib - got).abs().max())))
+    nbytes = N * D * 4 + N * 4 + N * N * 4
+    ops = float(N) * N * (D + SKETCH_OPS_PER_OUTPUT)
+    bms, by = bound_ms(nbytes, ops, clock_mhz, lanes=FP32_LANES_PER_SM)
+    shape = "N=%d D=%d" % (N, D)
+    log("%-19s %s: kernel %.3f ms, plain %.1f ms, library %.3f ms, bound "
+        "%.3f ms (%s), %.2fx the bound"
+        % ("sketch_scores", shape, ms, plain_ms, library_ms, bms, by,
+           ms / bms))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                shape=shape, library_ms=library_ms), err
+
+
 KERNELS = [
     ("myers_ed", "isocon_tpu_torch/csrc/myers_ed.cu",
      "isocon_tpu/ops/myers_pallas.py:359"),
@@ -1219,6 +1419,9 @@ KERNELS = [
      "isocon_tpu/ops/affine_pallas_c.py:606"),
     ("wavefront_ed", "isocon_tpu_torch/csrc/wavefront_ed.cu",
      "isocon_tpu/ops/wavefront_pallas.py:178"),
+    # a jax.jit dot + top_k, not a pl.pallas_call
+    ("sketch_scores", "isocon_tpu_torch/csrc/sketch.cu",
+     "isocon_tpu/graph/sketch.py:51"),
 ]
 
 
@@ -1246,6 +1449,7 @@ def main() -> None:
     from isocon_tpu_torch import native
     from isocon_tpu_torch.ops import (_build, affine, myers, oracle,
                                       wavefront)
+    from isocon_tpu_torch.ops import sketch as sk
     from isocon_tpu_torch.ops import affine_cuda as acu
 
     dev = torch.device("cuda", 0)
@@ -1260,18 +1464,31 @@ def main() -> None:
     err2 = phase_check_myers_hw(torch, np, myers, oracle, dev)
     err3, err4 = phase_check_affine(torch, np, affine, acu, dev)
     err5 = phase_check_wavefront(torch, np, wavefront, oracle, dev)
+    real = nontargeted_profiles(torch, np, dev, _build.BUILD_DIR)
+    err6, real_plain = phase_check_sketch(torch, np, sk, dev, real)
+    # kept on the host while the pipelines run (their peak memory is read)
+    real, real_plain = tuple(x.cpu() for x in real), real_plain.cpu()
+    torch.cuda.empty_cache()
     errs = {"myers_ed": err1, "myers_hw": err2, "affine_fwd": err3,
-            "affine_walk": err4, "wavefront_ed": err5}
+            "affine_walk": err4, "wavefront_ed": err5, "sketch_scores": err6}
     # each path sets the counts to 0 just before it runs (comparison
-    # launches do not count); K5's count is the long-read run's
+    # launches do not count); K5's count is the long-read run's, K6's the
+    # nontargeted run's
     launches = phase_main_path(torch, _build, dev)
     long_launches = phase_main_path(torch, _build, dev, long_reads=True)
     launches["wavefront_ed"] = long_launches["wavefront_ed"]
     log("launches on the long-read run: %s" % json.dumps(long_launches))
+    nt_launches = phase_main_path(torch, _build, dev, nontargeted=True)
+    launches["sketch_scores"] = nt_launches["sketch_scores"]
+    log("launches on the nontargeted run: %s" % json.dumps(nt_launches))
     timing, timing_errs = phase_timing(torch, np, myers, affine, acu,
                                        wavefront, dev, clock_mhz)
     for kname, err in timing_errs.items():
         errs[kname] = max(errs[kname], err)
+    timing["sketch_scores"], err = time_sketch(
+        torch, sk, *(x.to(dev) for x in real), real_plain.to(dev), clock_mhz)
+    errs["sketch_scores"] = max(errs["sketch_scores"], err)
+    del real, real_plain
 
     kernels = []
     for kname, source, replaces in KERNELS:
@@ -1284,9 +1501,11 @@ def main() -> None:
             # this line names two limits; K4's chain is one of operations
             # (its steps' dependent latency), logged above as "chain"
             "bound_by": ("operations" if tm["bound_by"] == "chain"
-                         else tm["bound_by"]), "library_ms": None,
+                         else tm["bound_by"]),
+            "library_ms": tm.get("library_ms"),
         })
-    log("no library call computes these functions: library_ms is null")
+    log("no library call computes K1-K5's functions: their library_ms is "
+        "null")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -217,7 +217,8 @@ def _add_common(p, with_stats: bool) -> None:
                    help="multi-device sharding (only 1 is supported)")
     p.add_argument("--nontargeted", action="store_true",
                    help="approximate sketch-retrieval candidate search "
-                        "(not ported yet)")
+                        "(hashed k-mer profiles, top-20 sketch neighbours "
+                        "rescored exactly) for reads of many genes")
     p.add_argument("--profile", action="store_true",
                    help="record a torch.profiler trace of the run into "
                         "<outfolder>/torch_trace.json")

@@ -25,10 +25,11 @@ BUILD_DIR = os.path.join(PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-SOURCES = ("myers_ed", "affine_sg", "wavefront_ed")
+SOURCES = ("myers_ed", "affine_sg", "wavefront_ed", "sketch")
 
 LAUNCHES: Dict[str, int] = {"myers_ed": 0, "myers_hw": 0, "affine_fwd": 0,
-                            "affine_walk": 0, "wavefront_ed": 0}
+                            "affine_walk": 0, "wavefront_ed": 0,
+                            "sketch_scores": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,7 @@ _SIGNATURES = {
     "isocon_affine_fwd": [_P] * 14 + [_I] * 5 + [_P],
     "isocon_affine_walk": [_P] * 8 + [_I] * 5 + [_P],
     "isocon_wavefront_ed": [_P] * 9 + [_I] * 7 + [_P],
+    "isocon_sketch_scores": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

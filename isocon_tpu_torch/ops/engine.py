@@ -194,10 +194,15 @@ class PairEngine:
             # pairs under the HW prefilter's cutoff that went to the host
             # traceback of the ends-ignored candidate graph, and its time
             "hw_survivors": 0, "hw_traceback_seconds": 0.0,
+            # rows the sketch of --nontargeted scored, and its time
+            "sketch_rows": 0, "sketch_seconds": 0.0,
         }
 
         # (mode, band width) -> pairs the banded wavefront ran there
         self.wavefront_rungs: dict = {}
+        # (mode, window words; 0 = the full width) -> pairs the Myers
+        # kernels ran there
+        self.myers_rungs: dict = {}
 
     def stats_line(self) -> str:
         c = self.counters
@@ -397,11 +402,15 @@ class PairEngine:
                     cert = band_certifies(ed, la[chunk], lb[chunk], Wp,
                                           hw_mode=hw_mode,
                                           small=Wp <= SMALL_WP)
-                elif win is None:
-                    self.counters["ed_pairs_full_window"] += len(chunk)
-                    cert = np.ones(len(chunk), dtype=bool)
                 else:
-                    cert = certifies(ed, la[chunk], lb[chunk], win=win)
+                    rung = ("HW" if hw_mode else "NW", win or 0)
+                    self.myers_rungs[rung] = (
+                        self.myers_rungs.get(rung, 0) + len(chunk))
+                    if win is None:
+                        self.counters["ed_pairs_full_window"] += len(chunk)
+                        cert = np.ones(len(chunk), dtype=bool)
+                    else:
+                        cert = certifies(ed, la[chunk], lb[chunk], win=win)
                 ci = chunk[cert]
                 d = ed[cert].astype(np.int64)
                 ed_out[ci] = np.where(d <= caps[ci], d, -1).astype(np.int32)

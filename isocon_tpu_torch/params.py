@@ -32,7 +32,7 @@ class Params:
     cleanup: bool = False
     prefilter_candidates: bool = False   # declared but inert in the reference too
     ccs: Optional[str] = None            # BAM/SAM with CCS predictions
-    nontargeted: bool = False            # sketch-prefilter approximate NN mode
+    nontargeted: bool = False            # --nontargeted: graph/sketch.py NN graph
     profile: bool = False                # capture a torch.profiler trace
 
     # derived at runtime

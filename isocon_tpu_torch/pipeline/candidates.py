@@ -72,11 +72,11 @@ def partition_strings(S: Dict[str, str], params, engine):
 
     conv_mask = [degrees[s] > 1 for s in unique_seqs]
     if getattr(params, "nontargeted", False):
-        # the approximate sketch-retrieval path (graphs.py:85-149) is not
-        # ported yet
-        raise NotImplementedError(
-            "--nontargeted (graph/sketch.py) is not ported yet "
-            "(ROADMAP.md, queue A item 9)")
+        # approximate sketch-retrieval path (the reference's dormant minimap
+        # mode, graphs.py:85-149)
+        from ..graph.sketch import approximate_nn_graph
+
+        nn = approximate_nn_graph(unique_seqs, conv_mask, engine)
     else:
         nn = nearest_neighbors(
             unique_seqs, conv_mask, engine,

@@ -2,11 +2,16 @@
 long-read workload (every read longer than 16,384 bases).
 
 A copy of the generator in ``scripts/bench_10k.py`` (that script parses
-``sys.argv`` when imported, so it is not imported here): one gene family
-of 26 isoforms (13 exon combinations x 2 SNV haplotypes, about
-1.2-1.65 kb each) and reads drawn round-robin from them with 1% noise,
-all from ``random.Random(seed)``.  The first N reads of a larger file are
-the N-read file.
+``sys.argv`` when imported, so it is not imported here): gene families of
+26 isoforms each (13 exon combinations x 2 SNV haplotypes) and reads
+drawn round-robin from all isoforms with 1% noise, all from
+``random.Random(seed)``.  Family 0 has the exon lengths ``EXON_LENS``
+(isoforms of about 1.2-1.65 kb); each further family draws six exon
+lengths in 120-449 bases.  The first N reads of a larger file are the
+N-read file.  The 10k-read workload is one family; the nontargeted one
+(``--nontargeted``: an amplicon run over several genes) is
+``write_reads(path, 10000, families=4)``, 104 isoforms, the same as
+``ISOCON_BENCH_FAMILIES=4 scripts/bench_10k.py 10000``.
 
 The long-read workload (``write_long_reads``) is one family of 8 isoforms
 (4 exon combinations x 2 SNV haplotypes) of 16.5-20 kb, as long-range PCR
@@ -27,10 +32,10 @@ COMBOS = [
 EXON_LENS = (350, 200, 300, 250, 400, 150)
 
 
-def make_isoforms(rng: random.Random) -> List[str]:
+def make_family(rng: random.Random, exon_lens) -> List[str]:
     """26 isoforms: 13 exon-combination variants x 2 SNV haplotypes."""
     exons = ["".join(rng.choice("ACGT") for _ in range(ln))
-             for ln in EXON_LENS]
+             for ln in exon_lens]
     isoforms = []
     for combo in COMBOS:
         seq = "".join(exons[e] for e in combo)
@@ -40,6 +45,16 @@ def make_isoforms(rng: random.Random) -> List[str]:
             p = int(len(bl) * frac)
             bl[p] = {"A": "C", "C": "G", "G": "T", "T": "A"}[bl[p]]
         isoforms.append("".join(bl))
+    return isoforms
+
+
+def make_isoforms(rng: random.Random, families: int = 1) -> List[str]:
+    """Family 0 with ``EXON_LENS``, then ``families - 1`` families of six
+    exon lengths drawn in 120-449 bases."""
+    isoforms = make_family(rng, EXON_LENS)
+    for _f in range(1, families):
+        lens = tuple(int(rng.randrange(120, 450)) for _ in range(6))
+        isoforms.extend(make_family(rng, lens))
     return isoforms
 
 
@@ -59,10 +74,12 @@ def noisy_copy(rng: random.Random, s: str, error_rate: float = 0.01) -> str:
     return "".join(out)
 
 
-def write_reads(path: str, n_reads: int, seed: int = 123) -> List[str]:
-    """Write ``n_reads`` noisy reads as fasta; returns the isoforms."""
+def write_reads(path: str, n_reads: int, seed: int = 123,
+                families: int = 1) -> List[str]:
+    """Write ``n_reads`` noisy reads of ``families`` gene families as
+    fasta; returns the isoforms."""
     rng = random.Random(seed)
-    isoforms = make_isoforms(rng)
+    isoforms = make_isoforms(rng, families)
     with open(path, "w") as fh:
         for i in range(n_reads):
             iso = isoforms[i % len(isoforms)]

@@ -19,6 +19,7 @@ from isocon_tpu_torch.ops import _build
 from isocon_tpu_torch.ops import affine as ta
 from isocon_tpu_torch.ops import affine_cuda as tac
 from isocon_tpu_torch.ops import myers as tm
+from isocon_tpu_torch.ops import sketch as tsk
 from isocon_tpu_torch.ops import wavefront as tw
 from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
 
@@ -60,19 +61,24 @@ def test_build_table_lists_every_kernel():
     signature, and every kernel a launch counter."""
     import os
 
-    assert _build.SOURCES == ("myers_ed", "affine_sg", "wavefront_ed")
+    assert _build.SOURCES == ("myers_ed", "affine_sg", "wavefront_ed",
+                              "sketch")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
     assert set(_build._SIGNATURES) == {
         "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
-        "isocon_affine_walk", "isocon_wavefront_ed"}
+        "isocon_affine_walk", "isocon_wavefront_ed", "isocon_sketch_scores"}
     assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
+    assert len(_build._SIGNATURES["isocon_sketch_scores"]) == 8
+    with open(os.path.join(_build.CSRC, "sketch.cu")) as fh:
+        assert "ISOCON_API int isocon_sketch_scores(" in fh.read()
     assert len(_build._SIGNATURES["isocon_affine_fwd"]) == 20
     assert len(_build._SIGNATURES["isocon_affine_walk"]) == 14
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
-                                    "affine_walk", "wavefront_ed"}
+                                    "affine_walk", "wavefront_ed",
+                                    "sketch_scores"}
     _build.LAUNCHES["wavefront_ed"] += 1
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
@@ -856,3 +862,64 @@ def test_engine_on_card_matches_cpu():
     sub = pairs[::7]
     scores = [(2, -2, 2, 0)] * len(sub)
     assert gpu.align_pairs(sub, scores) == cpu.align_pairs(sub, scores)
+
+
+def _sketch_inputs(N, D=512, seed=0):
+    """Square-rooted Poisson counts (float32 [N, D]) with every fifth row
+    a copy of an earlier one (exact ties) and a zero row, and lengths."""
+    rs = np.random.default_rng(seed)
+    prof = rs.poisson(3, size=(N, D)).astype(np.float32)
+    for r in range(5, N, 5):
+        prof[r] = prof[r // 2]
+    if N > 3:
+        prof[3] = 0
+    lens = rs.integers(700, 1900, N).astype(np.int32)
+    return torch.sqrt(torch.from_numpy(prof)), torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("N", [1, 2, 63, 4097, 10001])
+def test_sketch_kernel_matches_plain(N):
+    """K6 bit for bit against the plain version: the whole matrix up to
+    4,097 rows, and at 10,001 the first rows, the rows across the 4,096
+    chunk seam and the ragged last rows."""
+    dev = _card()
+    p, lens = (x.to(dev) for x in _sketch_inputs(N))
+    spans = ([(0, N)] if N <= 4097 else
+             [(0, 130), (tsk.ROW_CHUNK - 70, 140), (N - 97, 97)])
+    for row0, rows in spans:
+        before = _build.LAUNCHES["sketch_scores"]
+        got = tsk.sketch_scores(p, lens, row0, rows)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["sketch_scores"] == before + 1
+        want = tsk.sketch_scores_plain(p, lens, row0, rows)
+        assert got.shape == (rows, N)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("D", [32, 96])
+def test_sketch_kernel_other_depths(D):
+    dev = _card()
+    p, lens = (x.to(dev) for x in _sketch_inputs(200, D=D, seed=D))
+    got = tsk.sketch_scores(p, lens, 37, 100)
+    want = tsk.sketch_scores_plain(p, lens, 37, 100)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_sketch_topn_chunk_seams():
+    """topn_indices in chunks on the card (seams at 100, 4,096 and a ragged
+    last chunk) equals the plain top-n of the whole matrix."""
+    dev = _card()
+    p, lens = (x.to(dev) for x in _sketch_inputs(4500))
+    want = tsk.topn(tsk.sketch_scores_plain(p, lens, 0, 4500), 20)[1]
+    for chunk in (100, tsk.ROW_CHUNK):
+        assert torch.equal(tsk.topn_indices(p, lens, 20, chunk=chunk), want)
+
+
+def test_sketch_kernel_rejects_bad_inputs():
+    dev = _card()
+    p, lens = (x.to(dev) for x in _sketch_inputs(64, D=48))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tsk.sketch_scores(p, lens, 0, 64)
+    p, lens = (x.to(dev) for x in _sketch_inputs(64))
+    with pytest.raises(ValueError, match="outside"):
+        tsk.sketch_scores(p, lens, 10, 60)

@@ -2,7 +2,8 @@
 one CUDA card.
 
 Writes a synthetic workload (``isocon_tpu_torch.workload``: the 10k-read
-family, or with ``--long`` the long-read family of 16.5-20 kb), runs
+family, with ``--long`` the long-read family of 16.5-20 kb, or with
+``--nontargeted`` four gene families, run with ``--nontargeted``), runs
 ``get_candidates`` (with ``--pipeline``: ``pipeline``) through
 ``isocon_tpu_torch.cli`` with ``--profile`` (a ``torch.profiler`` trace of
 CPU ops and CUDA activity), and summarises the trace: wall seconds of the
@@ -16,8 +17,9 @@ With ``--host`` it runs the same command under ``cProfile`` instead (no
 torch profiler) and prints the port's functions with the most cumulative
 host time: where the host, which holds the card idle, spends the run.
 
-Usage: python tools/phase1_profile.py [--host] [--pipeline] [--long]
-       [N_READS] [WORKDIR]   (defaults: 10000 reads, a temporary directory)
+Usage: python tools/phase1_profile.py [--host] [--pipeline]
+       [--long | --nontargeted] [N_READS] [WORKDIR]
+       (defaults: 10000 reads, a temporary directory)
 """
 from __future__ import annotations
 
@@ -65,23 +67,29 @@ def main() -> None:
     host = "--host" in argv
     which = "pipeline" if "--pipeline" in argv else "get_candidates"
     long_reads = "--long" in argv
-    argv = [a for a in argv if a not in ("--host", "--pipeline", "--long")]
+    nontargeted = "--nontargeted" in argv
+    argv = [a for a in argv if a not in ("--host", "--pipeline", "--long",
+                                         "--nontargeted")]
     n_reads = int(argv[0]) if argv else 10000
     work = argv[1] if len(argv) > 1 else tempfile.mkdtemp()
     os.makedirs(work, exist_ok=True)
     reads = os.path.join(work, "reads.fa")
-    (write_long_reads if long_reads else write_reads)(reads, n_reads)
+    if long_reads:
+        write_long_reads(reads, n_reads)
+    else:
+        write_reads(reads, n_reads, families=4 if nontargeted else 1)
     out = os.path.join(work, "out")
+    mode = ["--nontargeted"] if nontargeted else []
     if host:
         prof = cProfile.Profile()
         prof.runcall(cli.main, [which, "-fl_reads", reads,
-                                "-outfolder", out, "--device", "cuda"])
+                                "-outfolder", out, "--device", "cuda", *mode])
         stats = pstats.Stats(prof)
         stats.sort_stats("cumulative").print_stats("isocon_tpu_torch", 60)
         return
     t0 = time.perf_counter()
     engine = cli.main([which, "-fl_reads", reads, "-outfolder", out,
-                       "--device", "cuda", "--profile"])
+                       "--device", "cuda", "--profile", *mode])
     if which == "pipeline":
         engine = engine[0]
     torch.cuda.synchronize()
@@ -114,6 +122,7 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip()
     print(json.dumps({
         "card": smi, "n_reads": n_reads, "long_reads": long_reads,
+        "nontargeted": nontargeted,
         "wall_s": wall,
         "trace_span_s": span, "device_busy_s": busy,
         "device_idle_share": 1.0 - busy / span if span else None,
