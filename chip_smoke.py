@@ -27,12 +27,14 @@ On one NVIDIA GPU (sm_90a) this script
    clamped and out-of-band pairs, queries longer than their target, empty
    spans and lengths 0 and 1, certified entries also against the numpy
    oracle on a sample; K6 (the sketch scores of ``--nontargeted``,
-   sequential-FMA sums) bit for bit on every entry of the [N, N] matrix,
-   launched in the main path's row chunks against the plain version in
-   the same chunks on the card, and their top-20 lists, at N = 2,000 and
-   10,001 on seeded profiles with exact ties and on the first round's
-   real profiles of the nontargeted workload; in the timing phase once
-   more at the timed shapes:
+   sequential-FMA sums, and each row's top 20): its scores entry bit for
+   bit on every entry of the [N, N] matrix, launched in row chunks against
+   the plain version in the same chunks on the card, and their top-20
+   lists, and its fused top-20 (the first pass, the merge and both) on
+   every row, values bit for bit and indices, at N = 2,000 and 10,001 on
+   seeded profiles with exact ties and on the first round's real profiles
+   of the nontargeted workload; in the timing phase once more at the
+   timed shapes:
    K1 and K2 on the engine's chunk of 262,144 pairs at win 7, K5 on the
    engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
@@ -59,8 +61,12 @@ On one NVIDIA GPU (sm_90a) this script
    K3/K4 at the long run's shape and K3/K4 at the runs' mean launch sizes
    (917 pairs at band 256, L = 2048; 119 at band 512, L = 32,768), without
    timing their plain versions; K6 at N = 10,000 (the nontargeted run's
-   first round) with its plain version and, as a yardstick only, the
-   library call ``torch.matmul`` without TF32 (``library_ms``);
+   first round) and at N = 1,102 (its smallest round's size, the first
+   1,102 of those reads): the fused top-20 against the path it replaced
+   (the scores entry in 4,096-row chunks and a stable sort), in turns, its
+   first pass, its merge and the scores entry alone, with their plain
+   versions and, as yardsticks only, the library calls (``torch.matmul``
+   without TF32 and ``torch.topk``: ``library_ms``);
 6. prints one JSON line with the kernels, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -83,6 +89,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_READS = 10000                 # the 10k-read workloads of phase 4
 NONTARGETED_FAMILIES = 4        # gene families of the nontargeted one
+SMALLEST_ROUND = 1102           # its smallest sketch round's unique reads
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SMS = 132
@@ -730,15 +737,50 @@ def check_sketch(torch, sk, name, got, want, k=20):
     return err
 
 
+def check_topn(torch, sk, name, p, lens, want, k=20):
+    """K6's fused top-n on the card against the plain version, every row:
+    the first pass (``sketch_topn``, at the plan's segment count) against
+    ``segment_topn_plain`` of the plain scores ``want``, the merge of its
+    lists against ``merge_topn_plain`` of the same lists, and the function
+    (``topn_scores``, one launch of each) against ``topn`` of ``want``,
+    values bit for bit and indices.  Returns the max abs error of the first
+    pass and of the merge (0.0 each) and the segment count."""
+    N = p.shape[0]
+    nseg = sk.plan_segments(
+        N, torch.cuda.get_device_properties(p.device).multi_processor_count)
+    pv, pi = sk.sketch_topn(p, lens, k, nseg)
+    wv, wi = sk.segment_topn_plain(want, k, sk.segment_bounds(N, nseg))
+    mv, mi = sk.merge_topn(pv, pi, k)
+    mwv, mwi = sk.merge_topn_plain(pv, pi, k)
+    fv, fi = sk.topn_scores(p, lens, k)
+    tv, ti = sk.topn(want, k)
+    errs = []
+    for what, (gv, gi), (ev, ei) in (
+            ("first pass", (pv, pi), (wv, wi)),
+            ("merge", (mv, mi), (mwv, mwi)),
+            ("fused function", (fv, fi), (tv, ti))):
+        rows = int(((gv.view(torch.int32) != ev.view(torch.int32))
+                    | (gi.to(torch.int64) != ei.to(torch.int64)))
+                   .reshape(N, -1).any(dim=1).sum())
+        if rows:
+            raise AssertionError("K6 %s: the %s differs from its plain "
+                                 "version in %d of %d rows"
+                                 % (name, what, rows, N))
+        errs.append(float((gv - ev).abs().nan_to_num().max()))
+    return errs[0], errs[1], nseg
+
+
 def phase_check_sketch(torch, np, sk, dev, real):
-    """K6 against ``sketch_scores_plain`` on every entry of the [N, N]
-    matrix, launched in the main path's chunks of ``ROW_CHUNK`` rows, the
-    plain version on the card in the same chunks; and the top-20 lists of
-    both: at N = 2,000, at N = 10,001 (ragged tiles and a ragged last
-    chunk) on ``sketch_inputs`` and on ``real``, the first round's profiles
-    of the nontargeted run.  Returns the max abs error and the plain
-    scores of ``real``."""
-    err = 0.0
+    """K6 against its plain versions on the card: the scores entry on every
+    entry of the [N, N] matrix, launched in chunks of ``ROW_CHUNK`` rows,
+    the plain version in the same chunks, and the top-20 lists of both;
+    the fused top-n, its first pass and its merge on every row
+    (``check_topn``): at N = 2,000, at N = 10,001 (ragged tiles and a
+    ragged last chunk) on ``sketch_inputs`` and on ``real``, the first
+    round's profiles of the nontargeted run.  Returns the max abs error of
+    each entry and the plain scores of ``real``."""
+    errs = dict.fromkeys(("sketch_scores", "sketch_topn", "sketch_merge"),
+                         0.0)
     want = None
     for name, (p, lens) in (("N=2000", sketch_inputs(torch, np, 2000, dev)),
                             ("N=10001", sketch_inputs(torch, np, 10001, dev,
@@ -754,15 +796,21 @@ def phase_check_sketch(torch, np, sk, dev, real):
         want = sketch_plain_chunks(torch, sk, p, lens)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        err = max(err, check_sketch(torch, sk, name, got, want))
-        vals = sk.topn(want, 20)[0]
-        log("K6 %s (%d x %d): equal to the plain version on every entry, "
-            "top-20 lists equal (%d rows hold a tie); kernel %.2f s, plain "
-            "%.1f s" % (name, N, N, int((vals[:, 1:] == vals[:, :-1])
-                                        .any(dim=1).sum()), t1 - t0, t2 - t1))
+        errs["sketch_scores"] = max(errs["sketch_scores"], check_sketch(
+            torch, sk, name, got, want))
         del got
+        e_top, e_merge, nseg = check_topn(torch, sk, name, p, lens, want)
+        errs["sketch_topn"] = max(errs["sketch_topn"], e_top)
+        errs["sketch_merge"] = max(errs["sketch_merge"], e_merge)
+        vals = sk.topn(want, 20)[0]
+        log("K6 %s (%d x %d): the scores entry equals the plain version on "
+            "every entry, top-20 lists equal (%d rows hold a tie); the fused "
+            "top-20 (%d segments), its first pass and its merge equal theirs "
+            "on every row; scores entry %.2f s, plain %.1f s"
+            % (name, N, N, int((vals[:, 1:] == vals[:, :-1])
+                               .any(dim=1).sum()), nseg, t1 - t0, t2 - t1))
     torch.cuda.empty_cache()
-    return err, want
+    return errs, want
 
 
 def _sha256(path):
@@ -796,7 +844,8 @@ def phase_main_path(torch, _build, dev, long_reads=False,
         assert expect["n_reads"] == N_READS
         assert expect["families"] == NONTARGETED_FAMILIES
         label = "nontargeted pipeline"
-        needed = ("sketch_scores", "myers_ed", "affine_fwd", "affine_walk")
+        needed = ("sketch_topn", "sketch_merge", "myers_ed", "affine_fwd",
+                  "affine_walk")
     else:
         assert expect["n_reads"] == N_READS
         label = "10k pipeline"
@@ -861,12 +910,14 @@ def phase_main_path(torch, _build, dev, long_reads=False,
            phase1["ed_pairs_wavefront"], c["align_overflows"],
            torch.cuda.max_memory_allocated(dev)))
     if nontargeted:
-        log("sketch: %d rows in %.2f s in phase 1 (%d K6 launches), %d rows "
-            "in phase 2 (%d launches)"
+        log("sketch: %d rows in %.2f s in phase 1 (K6 launches: %d first "
+            "passes, %d merges, %d of the scores entry), %d rows in phase 2 "
+            "(%d first passes)"
             % (phase1["sketch_rows"], phase1["sketch_seconds"],
+               launches1["sketch_topn"], launches1["sketch_merge"],
                launches1["sketch_scores"],
                c["sketch_rows"] - phase1["sketch_rows"],
-               launches2["sketch_scores"]))
+               launches2["sketch_topn"]))
         finals = {seq for _a, seq in read_fasta(
             os.path.join(out, "final_candidates.fa"))}
         log("information, not a gate: %d of the generator's %d isoforms are "
@@ -915,7 +966,7 @@ def phase_main_path(torch, _build, dev, long_reads=False,
         if launches[name] <= 0:
             raise AssertionError("%s: kernel %s was not launched"
                                  % (label, name))
-    if nontargeted and launches1["sketch_scores"] <= 0:
+    if nontargeted and launches1["sketch_topn"] <= 0:
         raise AssertionError("%s: K6 was not launched in phase 1" % label)
     both = needed if long_reads else ("myers_ed", "affine_fwd", "affine_walk")
     for name in both:
@@ -1357,55 +1408,135 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     return out, errs
 
 
-def time_sketch(torch, sk, p, lens, want, clock_mhz):
-    """K6 on all N rows of ``p`` in one launch (the main path launches
-    ``ROW_CHUNK`` rows at a time; one launch does the same work), held to
-    the plain scores ``want``: the mean ms of 5 launches after a warm-up,
-    the plain version's ms (``sketch_plain_chunks``), the library call's ms
-    and the bound.  The library call, a comparator only (the port never
-    makes it): ``torch.matmul(p, p.T)`` in float32 without TF32, minus the
-    length differences, minus 1e9 on the diagonal; how many of its entries
-    and top-20 lists differ from K6's is logged.  Bytes: p and the lengths
-    read once, the [N, N] scores written once; operations: D fmas and
-    ``SKETCH_OPS_PER_OUTPUT`` a score, at the float32 FMA rate."""
+def time_sketch(torch, sk, p, lens, want, clock_mhz, k=20):
+    """K6 at the shape of ``p`` (N rows, all in one launch of each kernel),
+    mean ms of 5 calls after a warm-up (CUDA events), each reading held to
+    the plain scores ``want``:
+    - the fused function (``topn_scores``: first pass and merge) and the
+      path it replaced (the scores entry in ``ROW_CHUNK``-row chunks, each
+      chunk's ``topn`` sort), in turns: fused, replaced, replaced, fused;
+    - the first pass alone (``sketch_topn``), the merge alone, the scores
+      entry alone (all N rows);
+    - the plain versions once: the plain scores (``sketch_plain_chunks``),
+      their segments' ``segment_topn_plain`` (the two make
+      ``sketch_topn_plain``) and ``merge_topn_plain``;
+    - the library calls, comparators only (the port never makes them):
+      ``torch.matmul(p, p.T)`` in float32 without TF32 minus the length
+      differences and 1e9 on the diagonal (the scores), then
+      ``torch.topk(k)`` (the function; the first pass's yardstick), and
+      ``torch.topk(k)`` of the first pass's [N, segments x k] lists (the
+      merge's); how many top-k lists differ from K6's is logged.
+    Bounds: the function moves p and the lengths in and [N, k] values and
+    int64 indices out, and does D fmas and ``SKETCH_OPS_PER_OUTPUT`` a
+    score at the float32 FMA rate; the first pass writes its [N, segments,
+    k] lists instead; the merge moves the lists in and [N, k] out and does a
+    compare a listed pair; the scores entry writes the [N, N] scores.
+    Returns ({name: reading} of the three entries and of the fused
+    function, "fused"; {name: max abs error})."""
     N, D = p.shape
-    k6 = lambda: sk.sketch_scores(p, lens, 0, N)
-    k6()
-    ms, got = _time(torch, k6, 5)
-    err = check_sketch(torch, sk, "timed launch N=%d" % N, got, want)
-    plain_ms, _ = _time(torch, lambda: sketch_plain_chunks(torch, sk, p,
-                                                           lens), 1)
+    nseg = sk.plan_segments(
+        N, torch.cuda.get_device_properties(p.device).multi_processor_count)
+    fused = lambda: sk.topn_scores(p, lens, k)
+    replaced = lambda: [sk.topn(sk.sketch_scores(
+        p, lens, r0, min(sk.ROW_CHUNK, N - r0)), k)
+        for r0 in range(0, N, sk.ROW_CHUNK)]
+    fused()
+    replaced()
+    turns = [_time(torch, fn, 5) for fn in (fused, replaced, replaced,
+                                            fused)]
+    fused_ms = [turns[0][0], turns[3][0]]
+    replaced_ms = [turns[1][0], turns[2][0]]
+    first = lambda: sk.sketch_topn(p, lens, k, nseg)
+    first()
+    first_ms, (pv, pi) = _time(torch, first, 5)
+    merge = lambda: sk.merge_topn(pv, pi, k)
+    merge()
+    merge_ms, (mv, mi) = _time(torch, merge, 5)
+    scores = lambda: sk.sketch_scores(p, lens, 0, N)
+    scores()
+    scores_ms, got = _time(torch, scores, 5)
+    errs = {"sketch_scores": check_sketch(torch, sk, "timed launch N=%d" % N,
+                                          got, want)}
+    del got
+    tv, ti = sk.topn(want, k)
+    wv, wi = sk.segment_topn_plain(want, k, sk.segment_bounds(N, nseg))
+    for what, (gv, gi), (ev, ei) in (
+            ("fused function", turns[3][1], (tv, ti)),
+            ("replaced path", (torch.cat([v for v, _i in turns[2][1]]),
+                               torch.cat([i for _v, i in turns[2][1]])),
+             (tv, ti)),
+            ("sketch_topn", (pv, pi), (wv, wi)), ("sketch_merge", (mv, mi),
+                                                  (tv, ti))):
+        if not (torch.equal(gv.view(torch.int32), ev.view(torch.int32))
+                and torch.equal(gi.to(torch.int64), ei.to(torch.int64))):
+            raise AssertionError("K6 timed N=%d: the %s differs from the "
+                                 "plain top-%d" % (N, what, k))
+        if what.startswith("sketch"):
+            errs[what] = float((gv - ev).abs().nan_to_num().max())
+    # the plain first pass is the plain scores and their segments' topn
+    # (``sketch_topn_plain``), timed as its two parts
+    plain_scores_ms, plain = _time(torch, lambda: sketch_plain_chunks(
+        torch, sk, p, lens), 1)
+    plain_select_ms, _ = _time(torch, lambda: sk.segment_topn_plain(
+        plain, k, sk.segment_bounds(N, nseg)), 1)
+    del plain
+    plain_first_ms = plain_scores_ms + plain_select_ms
+    plain_merge_ms, _ = _time(torch, lambda: sk.merge_topn_plain(pv, pi, k),
+                              1)
     ld = lens.to(torch.int64)
 
-    def library():
+    def lib_scores():
         out = torch.matmul(p, p.t())
         out -= (ld[:, None] - ld[None, :]).abs().to(torch.float32)
         out.diagonal().sub_(1e9)
         return out
 
+    lib_topn = lambda: torch.topk(lib_scores(), k, dim=1)
+    lib_merge = lambda: torch.topk(pv.reshape(N, -1), k, dim=1)
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        library()
-        library_ms, lib = _time(torch, library, 5)
+        lib = {}
+        for name, fn in (("sketch_scores", lib_scores),
+                         ("sketch_topn", lib_topn),
+                         ("sketch_merge", lib_merge)):
+            fn()
+            lib[name] = _time(torch, fn, 5)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    rows = int((sk.topn(lib, 20)[1] != sk.topn(got, 20)[1]).any(dim=1).sum())
-    log("K6 N=%d: the library call (torch.matmul, no TF32) differs from K6 "
-        "in %d of %d entries and in %d rows' top-20 lists (max abs %g); it is "
-        "a comparator, not the function"
-        % (N, int((lib != got).sum()), N * N, rows,
-           float((lib - got).abs().max())))
-    nbytes = N * D * 4 + N * 4 + N * N * 4
+    lib_i = lib["sketch_topn"][1].indices
+    log("K6 N=%d: the library top-%d (torch.matmul without TF32, torch.topk) "
+        "differs from K6's in %d of %d rows' lists; the library scores "
+        "differ in %d of %d entries (max abs %g); comparators, not the "
+        "function" % (N, k, int((lib_i != ti).any(dim=1).sum()), N,
+                      int((lib["sketch_scores"][1] != want).sum()), N * N,
+                      float((lib["sketch_scores"][1] - want).abs().max())))
+    del lib_i
     ops = float(N) * N * (D + SKETCH_OPS_PER_OUTPUT)
-    bms, by = bound_ms(nbytes, ops, clock_mhz, lanes=FP32_LANES_PER_SM)
-    shape = "N=%d D=%d" % (N, D)
-    log("%-19s %s: kernel %.3f ms, plain %.1f ms, library %.3f ms, bound "
-        "%.3f ms (%s), %.2fx the bound"
-        % ("sketch_scores", shape, ms, plain_ms, library_ms, bms, by,
-           ms / bms))
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                shape=shape, library_ms=library_ms), err
+    inputs = N * D * 4 + N * 4
+    shape = "N=%d D=%d k=%d segments=%d" % (N, D, k, nseg)
+    out = {}
+    for name, ms, plain_ms, nbytes, nops in (
+            ("sketch_topn", first_ms, plain_first_ms,
+             inputs + N * nseg * k * 8, ops),
+            ("sketch_merge", merge_ms, plain_merge_ms,
+             N * nseg * k * 8 + N * k * 12, float(N) * nseg * k),
+            ("sketch_scores", scores_ms, plain_scores_ms,
+             inputs + N * N * 4, ops),
+            ("fused", min(fused_ms), plain_first_ms + plain_merge_ms,
+             inputs + N * k * 12, ops)):
+        bms, by = bound_ms(nbytes, nops, clock_mhz, lanes=FP32_LANES_PER_SM)
+        library_ms = lib["sketch_topn" if name == "fused" else name][0]
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         shape=shape, library_ms=library_ms)
+        log("%-19s %s: kernel %.3f ms, plain %.1f ms, library %.3f ms, "
+            "bound %.3f ms (%s), %.2fx the bound"
+            % (name, shape, ms, plain_ms, library_ms, bms, by, ms / bms))
+    log("K6 N=%d in turns: the fused function %s ms, the replaced path (the "
+        "scores entry in %d-row chunks + topn's sort) %s ms"
+        % (N, " / ".join("%.3f" % x for x in fused_ms), sk.ROW_CHUNK,
+           " / ".join("%.3f" % x for x in replaced_ms)))
+    return out, errs
 
 
 KERNELS = [
@@ -1419,9 +1550,14 @@ KERNELS = [
      "isocon_tpu/ops/affine_pallas_c.py:606"),
     ("wavefront_ed", "isocon_tpu_torch/csrc/wavefront_ed.cu",
      "isocon_tpu/ops/wavefront_pallas.py:178"),
-    # a jax.jit dot + top_k, not a pl.pallas_call
-    ("sketch_scores", "isocon_tpu_torch/csrc/sketch.cu",
+    # a jax.jit dot + top_k, not a pl.pallas_call: its scores and top-k
+    # (the first pass), the merge of a row's lists, and the scores entry
+    ("sketch_topn", "isocon_tpu_torch/csrc/sketch.cu",
      "isocon_tpu/graph/sketch.py:51"),
+    ("sketch_merge", "isocon_tpu_torch/csrc/sketch.cu",
+     "isocon_tpu/graph/sketch.py:62"),
+    ("sketch_scores", "isocon_tpu_torch/csrc/sketch.cu",
+     "isocon_tpu/graph/sketch.py:56"),
 ]
 
 
@@ -1465,30 +1601,42 @@ def main() -> None:
     err3, err4 = phase_check_affine(torch, np, affine, acu, dev)
     err5 = phase_check_wavefront(torch, np, wavefront, oracle, dev)
     real = nontargeted_profiles(torch, np, dev, _build.BUILD_DIR)
-    err6, real_plain = phase_check_sketch(torch, np, sk, dev, real)
+    errs6, real_plain = phase_check_sketch(torch, np, sk, dev, real)
     # kept on the host while the pipelines run (their peak memory is read)
     real, real_plain = tuple(x.cpu() for x in real), real_plain.cpu()
     torch.cuda.empty_cache()
     errs = {"myers_ed": err1, "myers_hw": err2, "affine_fwd": err3,
-            "affine_walk": err4, "wavefront_ed": err5, "sketch_scores": err6}
+            "affine_walk": err4, "wavefront_ed": err5, **errs6}
     # each path sets the counts to 0 just before it runs (comparison
     # launches do not count); K5's count is the long-read run's, K6's the
-    # nontargeted run's
+    # nontargeted run's (its scores entry is for checking: 0 there)
     launches = phase_main_path(torch, _build, dev)
     long_launches = phase_main_path(torch, _build, dev, long_reads=True)
     launches["wavefront_ed"] = long_launches["wavefront_ed"]
     log("launches on the long-read run: %s" % json.dumps(long_launches))
     nt_launches = phase_main_path(torch, _build, dev, nontargeted=True)
-    launches["sketch_scores"] = nt_launches["sketch_scores"]
+    for kname in ("sketch_topn", "sketch_merge", "sketch_scores"):
+        launches[kname] = nt_launches[kname]
     log("launches on the nontargeted run: %s" % json.dumps(nt_launches))
     timing, timing_errs = phase_timing(torch, np, myers, affine, acu,
                                        wavefront, dev, clock_mhz)
     for kname, err in timing_errs.items():
         errs[kname] = max(errs[kname], err)
-    timing["sketch_scores"], err = time_sketch(
-        torch, sk, *(x.to(dev) for x in real), real_plain.to(dev), clock_mhz)
-    errs["sketch_scores"] = max(errs["sketch_scores"], err)
+    # K6 at round 1's N and at the run's smallest round's (its first 1,102
+    # unique reads)
+    p, lens = (x.to(dev) for x in real)
+    want = real_plain.to(dev)
     del real, real_plain
+    for n in (p.shape[0], SMALLEST_ROUND):
+        reading, k6_errs = time_sketch(
+            torch, sk, p[:n].contiguous(), lens[:n].contiguous(),
+            want[:n, :n].contiguous(), clock_mhz)
+        for kname, err in k6_errs.items():
+            errs[kname] = max(errs[kname], err)
+        if n == p.shape[0]:
+            timing.update(reading)
+    del p, lens, want
+    torch.cuda.empty_cache()
 
     kernels = []
     for kname, source, replaces in KERNELS:

@@ -6,7 +6,8 @@ reference's dormant minimap path (``minimap_alignment_module.py:146-269``
 ``graphs.construct_approximate_nearest_neighbor_graph:85-149``): every
 sequence becomes a hashed k-mer count profile, each read's ``TOPN`` best
 sketch scores (shared-k-mer estimate minus the length difference, minimap's
-heap key) name its candidates (``ops/sketch.py``, kernel K6 on the card),
+heap key) name its candidates (``ops/sketch.py``; on the card K6 selects
+them as it scores, and the [N, N] scores are never stored),
 and the candidates get exact distances from the engine, keeping only the
 minima per query.
 """

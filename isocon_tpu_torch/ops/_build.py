@@ -29,7 +29,8 @@ SOURCES = ("myers_ed", "affine_sg", "wavefront_ed", "sketch")
 
 LAUNCHES: Dict[str, int] = {"myers_ed": 0, "myers_hw": 0, "affine_fwd": 0,
                             "affine_walk": 0, "wavefront_ed": 0,
-                            "sketch_scores": 0}
+                            "sketch_scores": 0, "sketch_topn": 0,
+                            "sketch_merge": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +40,9 @@ _SIGNATURES = {
     "isocon_affine_fwd": [_P] * 14 + [_I] * 5 + [_P],
     "isocon_affine_walk": [_P] * 8 + [_I] * 5 + [_P],
     "isocon_wavefront_ed": [_P] * 9 + [_I] * 7 + [_P],
-    "isocon_sketch_scores": [_P] * 3 + [_I] * 4 + [_P],
+    "isocon_sketch_scores": [_P] * 4 + [_I] * 6 + [_P],
+    "isocon_sketch_topn": [_P] * 4 + [_I] * 5 + [_P],
+    "isocon_sketch_merge": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

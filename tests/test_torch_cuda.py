@@ -67,18 +67,24 @@ def test_build_table_lists_every_kernel():
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
     assert set(_build._SIGNATURES) == {
         "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
-        "isocon_affine_walk", "isocon_wavefront_ed", "isocon_sketch_scores"}
+        "isocon_affine_walk", "isocon_wavefront_ed", "isocon_sketch_scores",
+        "isocon_sketch_topn", "isocon_sketch_merge"}
     assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
-    assert len(_build._SIGNATURES["isocon_sketch_scores"]) == 8
+    assert len(_build._SIGNATURES["isocon_sketch_scores"]) == 11
+    assert len(_build._SIGNATURES["isocon_sketch_topn"]) == 10
+    assert len(_build._SIGNATURES["isocon_sketch_merge"]) == 8
     with open(os.path.join(_build.CSRC, "sketch.cu")) as fh:
-        assert "ISOCON_API int isocon_sketch_scores(" in fh.read()
+        src = fh.read()
+    for entry in ("scores", "topn", "merge"):
+        assert "ISOCON_API int isocon_sketch_%s(" % entry in src
     assert len(_build._SIGNATURES["isocon_affine_fwd"]) == 20
     assert len(_build._SIGNATURES["isocon_affine_walk"]) == 14
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
                                     "affine_walk", "wavefront_ed",
-                                    "sketch_scores"}
+                                    "sketch_scores", "sketch_topn",
+                                    "sketch_merge"}
     _build.LAUNCHES["wavefront_ed"] += 1
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
@@ -906,8 +912,9 @@ def test_sketch_kernel_other_depths(D):
 
 
 def test_sketch_topn_chunk_seams():
-    """topn_indices in chunks on the card (seams at 100, 4,096 and a ragged
-    last chunk) equals the plain top-n of the whole matrix."""
+    """topn_indices on the card equals the plain top-n of the whole matrix
+    whatever chunk it is given (the chunk is the CPU path's; on the card
+    the fused top-n takes all rows at once)."""
     dev = _card()
     p, lens = (x.to(dev) for x in _sketch_inputs(4500))
     want = tsk.topn(tsk.sketch_scores_plain(p, lens, 0, 4500), 20)[1]
@@ -923,3 +930,73 @@ def test_sketch_kernel_rejects_bad_inputs():
     p, lens = (x.to(dev) for x in _sketch_inputs(64))
     with pytest.raises(ValueError, match="outside"):
         tsk.sketch_scores(p, lens, 10, 60)
+
+
+@pytest.mark.parametrize("D", [32, 64, 512])
+@pytest.mark.parametrize("N", [2, 3, 21, 63, 129, 4097, 10001])
+def test_sketch_topn_and_merge_match_plain(N, D):
+    """The fused top-n's first pass and its merge, each against its plain
+    version on the same inputs, bit for bit, for k = 1 and 20 (at most
+    N - 1) and one segment, the plan's count and one a tile (at most 32);
+    each launch adds one to its counter, and the composition equals topn
+    of the plain scores, as topn_scores does in one launch of each."""
+    dev = _card()
+    p, lens = (x.to(dev) for x in _sketch_inputs(N, D=D, seed=N + D))
+    scores = tsk.sketch_scores_plain(p, lens, 0, N)
+    tiles = -(-N // tsk.TILE)
+    plan = tsk.plan_segments(
+        N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    for k in sorted({min(1, N - 1), min(20, N - 1)}):
+        want_v, want_i = tsk.topn(scores, k)
+        for nseg in sorted({1, plan, min(tiles, tsk.MAX_SEGMENTS)}):
+            before = dict(_build.LAUNCHES)
+            pv, pi = tsk.sketch_topn(p, lens, k, nseg)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["sketch_topn"] == before["sketch_topn"] + 1
+            wv, wi = tsk.segment_topn_plain(scores, k,
+                                            tsk.segment_bounds(N, nseg))
+            assert pv.shape == pi.shape == (N, nseg, k)
+            assert torch.equal(pv.view(torch.int32), wv.view(torch.int32))
+            assert torch.equal(pi, wi)
+            mv, mi = tsk.merge_topn(pv, pi, k)
+            torch.cuda.synchronize()
+            assert (_build.LAUNCHES["sketch_merge"]
+                    == before["sketch_merge"] + 1)
+            wmv, wmi = tsk.merge_topn_plain(pv, pi, k)
+            assert torch.equal(mv.view(torch.int32), wmv.view(torch.int32))
+            assert mi.dtype == torch.int64 and torch.equal(mi, wmi)
+            assert torch.equal(mv.view(torch.int32),
+                               want_v.view(torch.int32))
+            assert torch.equal(mi, want_i)
+        before = dict(_build.LAUNCHES)
+        v, i = tsk.topn_scores(p, lens, k)
+        assert {n: _build.LAUNCHES[n] - before[n] for n in before
+                if _build.LAUNCHES[n] != before[n]} == {
+                    "sketch_topn": 1, "sketch_merge": 1}
+        assert torch.equal(v.view(torch.int32), want_v.view(torch.int32))
+        assert torch.equal(i, want_i)
+
+
+def test_sketch_topn_rejects_bad_inputs():
+    dev = _card()
+    p, lens = (x.to(dev) for x in _sketch_inputs(300))
+    for k, nseg, match in ((0, 1, "k 0"), (33, 1, "k 33"), (20, 4,
+                                                             "segments 4"),
+                           (20, 0, "segments 0")):
+        with pytest.raises(ValueError, match=match):
+            tsk.sketch_topn(p, lens, k, nseg)
+    q, lq = (x.to(dev) for x in _sketch_inputs(300, D=48))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tsk.sketch_topn(q, lq, 20, 1)
+    with pytest.raises(ValueError, match="lens"):
+        tsk.sketch_topn(p, lens[:-1], 20, 1)
+    with pytest.raises(ValueError, match="k 3"):
+        tsk.sketch_topn(p[:3], lens[:3], 3, 1)
+    vals = torch.zeros((5, 33, 4), dtype=torch.float32, device=dev)
+    idx = torch.zeros((5, 33, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="S 33"):
+        tsk.merge_topn(vals, idx, 4)
+    with pytest.raises(ValueError, match="k = 3"):
+        tsk.merge_topn(vals[:, :2], idx[:, :2], 3)
+    with pytest.raises(TypeError):
+        tsk.merge_topn(vals[:, :2].double(), idx[:, :2], 4)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time K1 / K2 (the banded Myers NW / HW edit distance), K3 (the affine
-forward), K4 (its traceback walk) or K5 (the banded wavefront) of one tree
-of the port on the card.
+forward), K4 (its traceback walk), K5 (the banded wavefront) or K6 (the
+sketch scores' top-20) of one tree of the port on the card.
 
 K1 (``--kernel k1``): on ``chip_smoke.myers_batch``'s pairs (L = 2048) at
 win 7 for 262,144 pairs (the engine's ED chunk and the table's shape),
@@ -20,7 +20,15 @@ and 119 pairs of the chunk's copies at band 512, L = 32,768; or, with
 of warps a pair of the register kernel (1 or 4; 0, the default, lets the
 launch size choose, as the main path does).  K4 (``--kernel k4``): at the
 same shapes, K3 runs once for the direction bytes and only the walk is
-timed.  For each reading the kernel's ms and its bound with its limiting
+timed.  K6 (``--kernel k6``): the tree's ``ops/sketch.py::topn_indices``,
+the top-20 of the sketch scores as its main path computes them, on the
+first round's profiles of the nontargeted run
+(``chip_smoke.nontargeted_profiles``, N = 10,000) and on their first
+1,102 rows (its smallest round's size); with ``--segments S ...`` also
+the first pass alone
+(``sketch_topn``) at each segment count the rows allow, beside
+``plan_segments``' pick.  For each reading the kernel's ms and its bound
+with its limiting
 term, as this tree's ``chip_smoke.time_k3`` / ``time_k4`` / ``time_k5``
 (``time_myers`` for K1 / K2) and ``chip_smoke.bound_ms`` compute them;
 for K1 / K2 the shape also gives ``chip_smoke.warp_balance`` of the
@@ -61,6 +69,31 @@ K2_SHAPES = ((262144, 7),)
 def readings(cs, torch, np, dev, args):
     """(label, ms, bytes, operations, chain steps, shape) of each timed
     call."""
+    if args.kernel == "k6":
+        from isocon_tpu_torch.ops import _build, sketch
+
+        p, lens = cs.nontargeted_profiles(torch, np, dev, _build.BUILD_DIR)
+        N, D = p.shape
+        for n in (N, cs.SMALLEST_ROUND):
+            pn, ln = p[:n].contiguous(), lens[:n].contiguous()
+            # p and the lengths in, [n, 20] float32 values and int64
+            # indices out; D fmas and the two subtractions a score
+            nbytes = n * D * 4 + n * 4 + n * 20 * 12
+            ops = float(n) * n * (D + cs.SKETCH_OPS_PER_OUTPUT)
+            fn = lambda: sketch.topn_indices(pn, ln, 20)
+            fn()
+            ms, _got = cs._time(torch, fn, 5)
+            yield "topn", ms, nbytes, ops, 0, "N=%d D=%d k=20" % (n, D)
+            for nseg in args.segments or ():
+                if nseg > min(-(-n // sketch.TILE), sketch.MAX_SEGMENTS):
+                    continue
+                fn = lambda: sketch.sketch_topn(pn, ln, 20, nseg)
+                fn()
+                ms, _got = cs._time(torch, fn, 5)
+                yield ("first pass", ms, nbytes, ops, 0,
+                       "N=%d D=%d k=20 segments=%d (plan %d)"
+                       % (n, D, nseg, sketch.plan_segments(n, cs.SMS)))
+        return
     if args.kernel in ("k1", "k2"):
         from isocon_tpu_torch.ops import myers
 
@@ -120,7 +153,7 @@ def readings(cs, torch, np, dev, args):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6"),
                     required=True)
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--wp", type=int, nargs="+",
@@ -135,6 +168,9 @@ def main() -> None:
                     help="K3/K4 with --pairs: the long copies, L = 32,768")
     ap.add_argument("--warps", type=int, nargs="+", default=[0],
                     help="K3's warps a pair (0: by launch size)")
+    ap.add_argument("--segments", type=int, nargs="+",
+                    help="K6: also its first pass alone at each segment "
+                    "count (this tree's sketch_topn)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import chip_smoke as cs     # this tree's timing and bound
@@ -156,7 +192,9 @@ def main() -> None:
         print("register kernel %s: %d registers, %s" % (kname, regs, spill))
     for label, ms, nbytes, ops, chain, shape in readings(cs, torch, np, dev,
                                                          args):
-        bound, by = cs.bound_ms(nbytes, ops, clock_mhz, chain)
+        bound, by = cs.bound_ms(nbytes, ops, clock_mhz, chain, lanes=(
+            cs.FP32_LANES_PER_SM if args.kernel == "k6"
+            else cs.INT32_LANES_PER_SM))
         print(json.dumps({
             "tree": os.path.relpath(root, HERE), "kernel": args.kernel,
             "mode": label, "shape": shape, "ms": ms, "bound_ms": bound,
