@@ -823,11 +823,12 @@ VOLUME = ("ed_pairs", "ed_calls", "align_pairs", "align_calls")
 
 
 def phase_main_path(torch, _build, dev, long_reads=False,
-                    nontargeted=False):
+                    nontargeted=False, mesh=None):
     """``pipeline`` on the 10,000 reads, with ``long_reads`` on the 500
     long reads, or with ``nontargeted`` ``pipeline --nontargeted`` on the
-    10,000 reads of four gene families.  Returns the launches of each
-    kernel over the whole run."""
+    10,000 reads of four gene families; with ``mesh`` (a device list,
+    ``params.device_mesh``) sharded over it.  Returns the launches of each
+    kernel over the whole run (one a block when sharded)."""
     from isocon_tpu_torch import cli
     from isocon_tpu_torch.io import read_fasta
     from isocon_tpu_torch.workload import write_long_reads, write_reads
@@ -850,6 +851,8 @@ def phase_main_path(torch, _build, dev, long_reads=False,
         assert expect["n_reads"] == N_READS
         label = "10k pipeline"
         needed = ("myers_ed", "myers_hw", "affine_fwd", "affine_walk")
+    if mesh is not None:
+        label += " on %d shards" % len(mesh)
     n_reads = expect["n_reads"]
     work = os.path.join(_build.BUILD_DIR, "smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -865,10 +868,14 @@ def phase_main_path(torch, _build, dev, long_reads=False,
             "cuda"] + (["--nontargeted"] if nontargeted else [])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    run, params = cli.parse(argv)
+    params.device_mesh = mesh
     _build.reset_launches()
     t0 = time.perf_counter()
-    engine, phase1 = cli.main(argv)
+    engine, phase1 = run(params)
     torch.cuda.synchronize()
+    if mesh is not None and engine.sharder.devices != list(mesh):
+        raise AssertionError("%s: the engine is not on the mesh" % label)
     secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     launches1 = phase1["launches"]
@@ -980,6 +987,237 @@ def phase_main_path(torch, _build, dev, long_reads=False,
                              "in both phases and both modes")
     shutil.rmtree(work, ignore_errors=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# the sharded runs (parallel/): logical shards of the one card
+# ---------------------------------------------------------------------------
+SHARDED_SECONDS = 120       # the five steps' budget, all together
+
+
+def _strings(np, q, t, ql, tl):
+    """Code planes as string pairs (code 4 as X, 5 as N)."""
+    lut = np.frombuffer(b"ACGTXN", np.uint8)
+    return [(lut[q[b, :ql[b]]].tobytes().decode(),
+             lut[t[b, :tl[b]]].tobytes().decode()) for b in range(len(ql))]
+
+
+def _max_err(np, got, want):
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    if got.shape != want.shape:
+        raise AssertionError("shape %s vs %s" % (got.shape, want.shape))
+    return int(np.abs(got - want).max()) if got.size else 0
+
+
+def sharded_route_cases(np):
+    """(a)'s inputs: the NW window ladder on K1's pairs (515, L 2048), HW
+    on K2's (515), alignments on K3/K4's (265, scores varied), K5 NW
+    (cap 2,000) and HW on 25 of the long pairs; no count a multiple of
+    2 or 3."""
+    ed_pairs = _strings(np, *myers_pairs(np, 515, 2048))
+    hw_pairs_ = _strings(np, *hw_pairs(np, 515, 2048))
+    align_pairs = _strings(np, *affine_pairs(np, 265, 2048))
+    scores = [(2, (-1, -2, -4)[i % 3], 2, i % 2)
+              for i in range(len(align_pairs))]
+    # past the first 8, whose lengths _edge_lengths sets over pad codes
+    long_pairs = _strings(np, *(x[8:] for x in wavefront_long_pairs(np, 33)))
+    return ed_pairs, hw_pairs_, align_pairs, scores, long_pairs
+
+
+def sharded_engine_routes(torch, np, _build, dev, cases):
+    """(a): a local engine and engines on 2 and 3 shards of the card run
+    the four routes; every entry, counter and rung must be equal, and each
+    sharded engine must launch n times the local one's kernels (one launch
+    a block).  Returns each kernel's max abs error."""
+    from isocon_tpu_torch.ops.engine import PairEngine
+    from isocon_tpu_torch.parallel import Sharder
+
+    ed_pairs, hw_pairs_, align_pairs, scores, long_pairs = cases
+    caps = [2000] * len(long_pairs)
+
+    def run(engine):
+        _build.reset_launches()
+        out = {"myers_ed": engine.edit_distances(ed_pairs),
+               "myers_hw": engine.edit_distances(hw_pairs_, hw_mode=True),
+               "align": engine.align_pairs(align_pairs, scores),
+               "wave_nw": engine.edit_distances(long_pairs, k_cap=caps),
+               "wave_hw": engine.edit_distances(long_pairs, hw_mode=True)}
+        torch.cuda.synchronize()
+        return out, dict(_build.LAUNCHES)
+
+    local = PairEngine(device="cuda")
+    want, want_launches = run(local)
+    log("sharded (a): local engine's launches %s" % json.dumps(
+        want_launches))
+    errs = {}
+    for n in (2, 3):
+        engine = PairEngine(device="cuda", sharder=Sharder([dev] * n))
+        got, launches = run(engine)
+        errs["myers_ed"] = max(errs.get("myers_ed", 0), _max_err(
+            np, got["myers_ed"][0], want["myers_ed"][0]))
+        hw_known = want["myers_hw"][0] >= 0
+        errs["myers_hw"] = max(errs.get("myers_hw", 0), _max_err(
+            np, got["myers_hw"][0], want["myers_hw"][0]), _max_err(
+            np, got["myers_hw"][1][hw_known], want["myers_hw"][1][hw_known]))
+        wave = 0
+        for key in ("wave_nw", "wave_hw"):
+            known = want[key][0] >= 0
+            wave = max(wave, _max_err(np, got[key][0], want[key][0]),
+                       _max_err(np, got[key][1][known], want[key][1][known]))
+        errs["wavefront_ed"] = max(errs.get("wavefront_ed", 0), wave)
+        same_alignments = got["align"] == want["align"]
+        errs["affine_fwd"] = errs["affine_walk"] = 0
+        if any(errs.values()) or not same_alignments:
+            raise AssertionError("sharded (a), %d shards: results differ "
+                                 "from the local engine's (max abs err %s, "
+                                 "alignments equal: %s)"
+                                 % (n, json.dumps(errs), same_alignments))
+        for key, value in local.counters.items():
+            if not key.endswith("seconds") and engine.counters[key] != value:
+                raise AssertionError("sharded (a), %d shards: counter %s %d "
+                                     "!= local %d" % (n, key,
+                                                      engine.counters[key],
+                                                      value))
+        if (engine.myers_rungs != local.myers_rungs
+                or engine.wavefront_rungs != local.wavefront_rungs):
+            raise AssertionError("sharded (a), %d shards: rungs differ" % n)
+        for kname, k in want_launches.items():
+            if launches[kname] != n * k:
+                raise AssertionError("sharded (a), %d shards: %s launched "
+                                     "%d times, not %d x %d"
+                                     % (n, kname, launches[kname], n, k))
+        log("sharded (a), %d shards of %s: every entry, counter and rung "
+            "equal; launches %s" % (n, dev, json.dumps(launches)))
+    for kname in ("myers_ed", "myers_hw", "affine_fwd", "affine_walk",
+                  "wavefront_ed"):
+        if want_launches[kname] <= 0:
+            raise AssertionError("sharded (a): %s was not launched" % kname)
+    return errs
+
+
+def sharded_phase1(torch, _build, dev, mesh):
+    """(c): ``get_candidates`` on the 10,000 reads on ``mesh``: the digest
+    of ``candidates_converged.fa`` and the phase-1 engine volume must be
+    the JAX package's."""
+    from isocon_tpu_torch import cli
+    from isocon_tpu_torch.workload import write_reads
+
+    with open(os.path.join(ROOT, "isocon_tpu_torch",
+                           "smoke_expect.json")) as fh:
+        expect = json.load(fh)
+    work = os.path.join(_build.BUILD_DIR, "smoke_sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    reads = os.path.join(work, "reads.fa")
+    write_reads(reads, N_READS)
+    out = os.path.join(work, "out")
+    run, params = cli.parse(["get_candidates", "-fl_reads", reads,
+                             "-outfolder", out, "--device", "cuda"])
+    params.device_mesh = mesh
+    _build.reset_launches()
+    engine = run(params)
+    torch.cuda.synchronize()
+    digest, data = _sha256(os.path.join(out, "candidates_converged.fa"))
+    log("sharded (c): get_candidates on %d reads, %d shards: %d "
+        "candidates, sha256 %s; %s; launches %s"
+        % (N_READS, engine.sharder.n, data.count(b">"), digest,
+           engine.stats_line(), json.dumps(_build.LAUNCHES)))
+    if digest != expect["candidates_converged_sha256"]:
+        raise AssertionError("sharded (c): candidates_converged.fa sha256 "
+                             "%s != the JAX package's" % digest)
+    for key in VOLUME:
+        if engine.counters[key] != expect[key]:
+            raise AssertionError("sharded (c): engine %s %d != the JAX "
+                                 "package's %d" % (key, engine.counters[key],
+                                                   expect[key]))
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def sharded_seam(_build, dev, cases):
+    """(d): two processes on localhost over gloo, each with a mesh of the
+    one card (``parallel/dryrun.py``), run (a)'s NW and alignment pairs;
+    both must read the local engine's results."""
+    from isocon_tpu_torch.ops.engine import PairEngine
+    from isocon_tpu_torch.parallel import dryrun
+
+    ed_pairs, _hw, align_pairs, scores, _long = cases
+    want = dryrun.engine_results(PairEngine(device="cuda"), ed_pairs,
+                                 align_pairs, scores)
+    got = dryrun.run(ed_pairs, align_pairs, scores, procs=2, local=1,
+                     device="cuda", timeout=150, workdir=_build.BUILD_DIR)
+    for r in got:
+        for key in ("ed", "alignments", "volume"):
+            if r[key] != want[key]:
+                raise AssertionError("sharded (d): process %d's %s differs "
+                                     "from the local engine's"
+                                     % (r["rank"], key))
+        log("sharded (d): process %d of 2 on the mesh %s equals the local "
+            "engine; its launches %s"
+            % (r["rank"], ", ".join("%s@%d" % x for x in zip(
+                r["mesh"], r["ranks"])), json.dumps(r["launches"])))
+
+
+def sharded_cli(torch, _build):
+    """(e): ``make_engine`` with ``--devices -1`` shards over every
+    visible card; ``--devices 1`` builds no sharder."""
+    from isocon_tpu_torch import cli
+
+    reads = os.path.join(_build.BUILD_DIR, "cli_reads.fa")
+    with open(reads, "w") as fh:
+        fh.write(">r\nACGT\n")
+    out = os.path.join(_build.BUILD_DIR, "cli_out")
+    every = [torch.device("cuda", i) for i in range(
+        torch.cuda.device_count())]
+    for ndev, want in (("-1", every), ("1", None)):
+        _run, params = cli.parse(["pipeline", "-fl_reads", reads,
+                                  "-outfolder", out, "--devices", ndev])
+        engine = cli.make_engine(params)
+        got = params.device_mesh
+        if got != want or engine.sharder.n != len(want or [0]):
+            raise AssertionError("sharded (e): --devices %s gives the mesh "
+                                 "%s and %d blocks, not %s"
+                                 % (ndev, got, engine.sharder.n, want))
+        log("sharded (e): --devices %s: %s" % (ndev, got or "no mesh, one "
+                                               "block"))
+    shutil.rmtree(out, ignore_errors=True)
+    os.unlink(reads)
+
+
+def phase_sharded(torch, np, _build, dev):
+    """(a)-(e) on logical shards of the one card (the split, padding and
+    gather; no cross-card launch).  The kernel launch counts of the main
+    paths are kept: this phase counts its own and restores them.  Returns
+    each kernel's max abs error from (a)."""
+    saved = dict(_build.LAUNCHES)
+    secs = {}
+    t0 = time.perf_counter()
+    cases = sharded_route_cases(np)
+    errs = sharded_engine_routes(torch, np, _build, dev, cases)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = phase_main_path(torch, _build, dev, long_reads=True,
+                               mesh=[dev, dev])
+    log("sharded (b): launches on the long-read run on 2 shards: %s"
+        % json.dumps(launches))
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_phase1(torch, _build, dev, [dev, dev])
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_seam(_build, dev, cases)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_cli(torch, _build)
+    secs["e"] = time.perf_counter() - t0
+    _build.LAUNCHES.update(saved)
+    total = sum(secs.values())
+    log("sharded phase: %s s, %.1f s in all (budget %d s)"
+        % (", ".join("(%s) %.1f" % kv for kv in secs.items()), total,
+           SHARDED_SECONDS))
+    if total > SHARDED_SECONDS:
+        raise AssertionError("sharded phase took %.1f s, over its %d s"
+                             % (total, SHARDED_SECONDS))
+    return errs
 
 
 def _time(torch, fn, reps):
@@ -1618,6 +1856,8 @@ def main() -> None:
     for kname in ("sketch_topn", "sketch_merge", "sketch_scores"):
         launches[kname] = nt_launches[kname]
     log("launches on the nontargeted run: %s" % json.dumps(nt_launches))
+    for kname, err in phase_sharded(torch, np, _build, dev).items():
+        errs[kname] = max(errs[kname], err)
     timing, timing_errs = phase_timing(torch, np, myers, affine, acu,
                                        wavefront, dev, clock_mhz)
     for kname, err in timing_errs.items():

@@ -29,6 +29,7 @@ from .io import read_fasta, read_fastx
 from .io.output import devlog, logger, print_candidates
 from .ops._build import LAUNCHES
 from .ops.engine import PairEngine
+from .parallel import Sharder, distributed, make_mesh
 from .params import Params
 from .pipeline.candidates import find_candidate_transcripts
 from .pipeline.stat_filter import stat_filter_candidates
@@ -65,11 +66,26 @@ def initialize_logger(params) -> None:
 
 
 def make_engine(params) -> PairEngine:
-    if params.devices != 1:
-        raise NotImplementedError(
-            "--devices (multi-device sharding, parallel/) is not ported yet "
-            "(ROADMAP.md, queue A item 10)")
-    return PairEngine(device=params.device)
+    """The pair engine (``isocon_tpu/cli.py::make_engine``).  First it joins
+    a multi-process group when ``ISOCON_COORDINATOR`` /
+    ``ISOCON_NUM_PROCESSES`` / ``ISOCON_PROCESS_ID`` are set; then
+    ``--devices N`` (N > 1) shards every kernel batch over the first N
+    devices of ``--device`` (N logical shards of the CPU), and ``-1`` or
+    a multi-process run over every process's devices (all visible cards;
+    one CPU shard).  ``--devices 1`` alone builds no sharder."""
+    multiprocess = distributed.initialize_from_env()
+    ndev = params.devices
+    if params.device_mesh is None and (ndev > 1 or ndev == -1
+                                       or multiprocess):
+        if ndev == -1 or multiprocess:
+            params.device_mesh = distributed.make_global_mesh(
+                make_mesh(None, params.device))
+        else:
+            params.device_mesh = make_mesh(ndev, params.device)
+    if params.device_mesh is None:
+        return PairEngine(device=params.device)
+    return PairEngine(device=params.device,
+                      sharder=Sharder(params.device_mesh))
 
 
 @contextlib.contextmanager
@@ -214,7 +230,8 @@ def _add_common(p, with_stats: bool) -> None:
                    help="accepted for CLI parity; the engine sizes its "
                         "own batches")
     p.add_argument("--devices", type=int, default=1,
-                   help="multi-device sharding (only 1 is supported)")
+                   help="shard the kernels over the first N devices of "
+                        "--device (N logical shards of the CPU); -1: all")
     p.add_argument("--nontargeted", action="store_true",
                    help="approximate sketch-retrieval candidate search "
                         "(hashed k-mer profiles, top-20 sketch neighbours "
@@ -254,7 +271,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def main(argv=None):
+def parse(argv=None):
+    """(the subcommand's run function, its ``Params``) from the command
+    line, with the output folder made."""
     parser = build_parser()
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     if not args.which:
@@ -280,6 +299,11 @@ def main(argv=None):
     params.ensure_outfolder()
     run = {"pipeline": run_pipeline, "get_candidates": run_get_candidates,
            "stat_filter": run_stat_filter}[args.which]
+    return run, params
+
+
+def main(argv=None):
+    run, params = parse(argv)
     return run(params)
 
 

@@ -7,8 +7,8 @@ named by a hash of their sources and flags and built at first use into
 ``isocon_tpu_torch/_build/`` (listed in ``.gitignore``); ``build_all``
 starts one ``nvcc`` per source, all at once.
 
-``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one
-where it launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches per kernel: ``launch``, through which
+every wrapper calls its C entry, adds one there and nowhere else.
 """
 from __future__ import annotations
 
@@ -122,3 +122,17 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if rc != 0:
         raise RuntimeError("CUDA kernel %s failed: cudaError %d" % (what, rc))
+
+
+def launch(dev, counter: str, entry, *args) -> None:
+    """Call the C entry ``entry(*args)`` for the card ``dev``, raise on its
+    error, and count one launch of ``counter``.  The entries launch on the
+    host thread's current card (and read its SM count), while the stream
+    they are given belongs to ``dev``: so the call runs with ``dev``
+    current."""
+    import torch
+
+    with torch.cuda.device(dev):
+        rc = entry(*args)
+    check(rc, counter)
+    LAUNCHES[counter] += 1

@@ -81,12 +81,10 @@ def affine_fwd_cuda(pool: torch.Tensor, qrow: torch.Tensor,
             raise ValueError("affine inputs on mixed devices")
     P = ctypes.c_void_p
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.isocon_affine_fwd(*[P(a.data_ptr()) for a in args],
-                               ctypes.c_int(B), ctypes.c_int(pool.shape[1]),
-                               ctypes.c_int(Wp), ctypes.c_int(S),
-                               ctypes.c_int(warps), P(stream))
-    _build.check(rc, "affine_fwd")
-    _build.LAUNCHES["affine_fwd"] += 1
+    _build.launch(dev, "affine_fwd", lib.isocon_affine_fwd,
+                  *[P(a.data_ptr()) for a in args], ctypes.c_int(B),
+                  ctypes.c_int(pool.shape[1]), ctypes.c_int(Wp),
+                  ctypes.c_int(S), ctypes.c_int(warps), P(stream))
     return best, ei, ej, dirs
 
 
@@ -113,12 +111,10 @@ def affine_walk(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, *,
     args = [dirs.contiguous(), _i32(ei), _i32(ej), ops, fi, fj, ov, counter]
     P = ctypes.c_void_p
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.isocon_affine_walk(*[P(a.data_ptr()) for a in args],
-                                ctypes.c_int(B), ctypes.c_int(S),
-                                ctypes.c_int(Wp), ctypes.c_int(nops),
-                                ctypes.c_int(WALK_TILE_ROWS), P(stream))
-    _build.check(rc, "affine_walk")
-    _build.LAUNCHES["affine_walk"] += 1
+    _build.launch(dev, "affine_walk", lib.isocon_affine_walk,
+                  *[P(a.data_ptr()) for a in args], ctypes.c_int(B),
+                  ctypes.c_int(S), ctypes.c_int(Wp), ctypes.c_int(nops),
+                  ctypes.c_int(WALK_TILE_ROWS), P(stream))
     return ops, fi, fj, ov != 0
 
 

@@ -15,6 +15,13 @@ distance and double the band on overflow.
 
 Results depend only on the exact edit distance and the caller's cap, so
 the decisions equal the JAX engine's whatever the window ladder.
+
+Every kernel batch (K1/K2, K5, K3 + K4) goes through a
+``parallel.Sharder``: by default one block on the engine's device, or a
+mesh's blocks, each on its device.  The pools live on the sharder's first
+device of this process, where the sketch (K6) runs unsharded.  The
+counters count the caller's pairs, never the sharder's padding, so the
+engine volume is the unsharded run's.
 """
 from __future__ import annotations
 
@@ -26,11 +33,11 @@ import torch
 
 from . import oracle
 from .affine import BandOverflow, ops_to_alignment_counts
-from .affine_cuda import fetch, sg_align_pool
 from .encode import encode_seq
 from .myers import (myers_certifies, myers_certifies_hw, myers_ed_pool,
                     myers_hw_pool, peq_table)
 from .wavefront import SMALL_WP, band_certifies, banded_ed_pool
+from ..parallel.sharding import Sharder
 
 # Band width -> Myers window words (certification radius 32*(win//2));
 # wider bands run the full-width window
@@ -170,11 +177,21 @@ class PairEngine:
     (``edit_distances`` / ``align_pairs``) and engine-table indices
     (``add_seqs`` + ``edit_distances_idx`` / ``align_pairs_idx``).
     ``device``: where the pools live and the kernels run (default CUDA;
-    ``"cpu"`` runs the kernels' plain versions).
+    ``"cpu"`` runs the kernels' plain versions).  ``sharder``: a
+    ``parallel.Sharder`` that runs every kernel batch over its mesh; the
+    engine's device is then the sharder's (``device`` may name its type).
+    Without one the engine makes a Sharder of its own device.
     """
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, sharder=None):
+        if sharder is not None:
+            if (device is not None
+                    and torch.device(device).type != sharder.device.type):
+                raise ValueError("device %s is not the sharder's %s"
+                                 % (device, sharder.device))
+            device = sharder.device
         self.device = resolve_device(device)
+        self.sharder = sharder or Sharder([self.device])
         self._enc_cache: dict = {}
         self._pools: dict = {}
         self._pool_reserve = 0
@@ -357,7 +374,6 @@ class PairEngine:
             ej_out[i] = 0 if hw_mode else int(lb[i])
             if hw_mode and la[i] == 0:
                 ed_out[i] = 0       # an empty query fits an empty span
-        kernel = myers_hw_pool if hw_mode else myers_ed_pool
         certifies = myers_certifies_hw if hw_mode else myers_certifies
         floor_of = self._myers_floor_hw if hw_mode else self._myers_floor
         rest = np.flatnonzero(~(diff_skip | empty))
@@ -380,19 +396,22 @@ class PairEngine:
                 step = WAVE_BATCH if wave else ED_BATCH
                 for s in range(0, len(idxs), step):
                     sl = slice(s, s + step)
-                    ia_t = torch.from_numpy(ia_all[sl]).to(self.device)
-                    ib_t = torch.from_numpy(ib_all[sl]).to(self.device)
+                    vecs = (ia_all[sl], ib_all[sl])
                     if wave:
-                        res = banded_ed_pool(mat, plen, ia_t, ib_t, Wp=Wp,
-                                             hw_mode=hw_mode)
+                        batch = self.sharder.launch(
+                            banded_ed_pool, (mat, plen), vecs, Wp=Wp,
+                            hw_mode=hw_mode)
                     else:
-                        res = kernel(mat, plen, peq, ia_t, ib_t, L=L, win=win)
-                    launched.append((idxs[sl], res, wave))
-            for chunk, res, wave in launched:
+                        batch = self.sharder.launch(
+                            myers_hw_pool if hw_mode else myers_ed_pool,
+                            (mat, plen, peq), vecs, L=L, win=win)
+                    launched.append((idxs[sl], batch, wave))
+            for chunk, batch, wave in launched:
+                res = self.sharder.collect(batch)
                 if hw_mode or wave:
-                    ed, ej = (x.cpu().numpy() for x in res)
+                    ed, ej = res
                 else:
-                    ed = res.cpu().numpy()
+                    ed, = res
                     ej = lb[chunk].astype(np.int32)
                 if wave:
                     self.counters["ed_pairs_wavefront"] += len(chunk)
@@ -534,14 +553,11 @@ class PairEngine:
                 mat, plen, _peq = pool.tensors()
                 for s in range(0, len(idxs), bchunk):
                     chunk = idxs[s: s + bchunk]
-                    t = lambda a: torch.from_numpy(
-                        np.ascontiguousarray(a)).to(self.device)
                     csc = sc[chunk]
-                    outs = sg_align_pool(
-                        mat, plen, t(ia_all[s: s + bchunk]),
-                        t(ib_all[s: s + bchunk]), t(csc[:, 0]),
-                        t(csc[:, 1]), t(csc[:, 2]), t(csc[:, 3]), Wp=Wp)
-                    _best, ei, ej, ops, fi, fj, ov = fetch(outs)
+                    vecs = (ia_all[s: s + bchunk], ib_all[s: s + bchunk],
+                            csc[:, 0], csc[:, 1], csc[:, 2], csc[:, 3])
+                    _best, ei, ej, ops, fi, fj, ov = \
+                        self.sharder.sg_align_pool(mat, plen, *vecs, Wp=Wp)
                     for pos, i in enumerate(chunk.tolist()):
                         if ov[pos]:
                             self.counters["align_overflows"] += 1

@@ -345,11 +345,8 @@ def _myers_cuda(pool, peq, qrow, trow, n, m, *, L, win, full, hw):
     geom = [ctypes.c_int(B), ctypes.c_int(pool.shape[1]), ctypes.c_int(L),
             ctypes.c_int(0 if full else win), P(stream)]
     if hw:
-        rc = lib.isocon_myers_hw(*ins, P(ej.data_ptr()), *geom)
-        _build.check(rc, "myers_hw")
-        _build.LAUNCHES["myers_hw"] += 1
+        _build.launch(dev, "myers_hw", lib.isocon_myers_hw, *ins,
+                      P(ej.data_ptr()), *geom)
         return out, ej
-    rc = lib.isocon_myers_ed(*ins, *geom)
-    _build.check(rc, "myers_ed")
-    _build.LAUNCHES["myers_ed"] += 1
+    _build.launch(dev, "myers_ed", lib.isocon_myers_ed, *ins, *geom)
     return out

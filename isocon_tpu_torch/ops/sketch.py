@@ -150,12 +150,11 @@ def _scores_cuda(prof_sqrt, lens, row0, rows):
     bt, ldb = _transposed(prof_sqrt)
     ln = lens.to(torch.int32).contiguous()
     P, I = ctypes.c_void_p, ctypes.c_int
-    rc = lib.isocon_sketch_scores(
+    _build.launch(
+        dev, "sketch_scores", lib.isocon_sketch_scores,
         P(at.data_ptr()), P(bt.data_ptr()), P(ln.data_ptr()),
         P(out.data_ptr()), I(N), I(D), I(lda), I(ldb), I(row0), I(rows),
         _stream(dev))
-    _build.check(rc, "sketch_scores")
-    _build.LAUNCHES["sketch_scores"] += 1
     return out
 
 
@@ -264,12 +263,11 @@ def sketch_topn(prof_sqrt: torch.Tensor, lens: torch.Tensor, k: int,
     vals = torch.empty((N, segments, k), dtype=torch.float32, device=dev)
     idx = torch.empty((N, segments, k), dtype=torch.int32, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
-    rc = lib.isocon_sketch_topn(
+    _build.launch(
+        dev, "sketch_topn", lib.isocon_sketch_topn,
         P(pt.data_ptr()), P(ln.data_ptr()), P(vals.data_ptr()),
         P(idx.data_ptr()), I(N), I(D), I(ld), I(k), I(segments),
         _stream(dev))
-    _build.check(rc, "sketch_topn")
-    _build.LAUNCHES["sketch_topn"] += 1
     return vals, idx
 
 
@@ -299,11 +297,10 @@ def merge_topn(vals: torch.Tensor, idx: torch.Tensor, k: int):
     out_v = torch.empty((N, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((N, k), dtype=torch.int64, device=dev)
     P, I = ctypes.c_void_p, ctypes.c_int
-    rc = lib.isocon_sketch_merge(
+    _build.launch(
+        dev, "sketch_merge", lib.isocon_sketch_merge,
         P(pv.data_ptr()), P(pi.data_ptr()), P(out_v.data_ptr()),
         P(out_i.data_ptr()), I(N), I(S), I(k), _stream(dev))
-    _build.check(rc, "sketch_merge")
-    _build.LAUNCHES["sketch_merge"] += 1
     return out_v, out_i
 
 

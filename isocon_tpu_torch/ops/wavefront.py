@@ -41,7 +41,7 @@ for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,15 +166,18 @@ def banded_ed_plain(qcodes: torch.Tensor, tcodes: torch.Tensor,
 
 
 def banded_ed_pool(pool: torch.Tensor, plen: torch.Tensor, ia: torch.Tensor,
-                   ib: torch.Tensor, *, Wp: int, hw_mode: bool = False
+                   ib: torch.Tensor, *, Wp: int, hw_mode: bool = False,
+                   small: Optional[bool] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded edit distances of pool-row pairs: query row ia[b] against
-    target row ib[b], in a band of Wp lanes (``small`` where
-    Wp <= SMALL_WP).
+    target row ib[b], in a band of Wp lanes, ``small`` (default: where
+    Wp <= SMALL_WP, the engine's choice; the JAX ``banded_ed``'s own
+    default is False at any Wp).
 
     pool: uint8 [R, Lp]; plen: int32 [R]; ia/ib: int [B].  Returns
     (ed, end_j) int32 [B] on the pool's device."""
-    small = Wp <= SMALL_WP
+    if small is None:
+        small = Wp <= SMALL_WP
     qrow, trow = ia.long(), ib.long()
     n, m = plen[qrow], plen[trow]
     if pool.device.type == "cpu":
@@ -213,7 +216,8 @@ def _wavefront_cuda(pool, qrow, trow, n, m, *, Wp, hw_mode, small):
         scratch = torch.empty((rows, Wp), dtype=torch.int32, device=dev)
     P = ctypes.c_void_p
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.isocon_wavefront_ed(
+    _build.launch(
+        dev, "wavefront_ed", lib.isocon_wavefront_ed,
         P(pool.data_ptr()), P(qrow.data_ptr()), P(trow.data_ptr()),
         P(n.data_ptr()), P(m.data_ptr()), P(ed.data_ptr()),
         P(ej.data_ptr()), P(counter.data_ptr()),
@@ -221,6 +225,4 @@ def _wavefront_cuda(pool, qrow, trow, n, m, *, Wp, hw_mode, small):
         ctypes.c_int(B), ctypes.c_int(pool.shape[1]), ctypes.c_int(Wp),
         ctypes.c_int(int(hw_mode)), ctypes.c_int(ceil_val),
         ctypes.c_int(unset), ctypes.c_int(rows), P(stream))
-    _build.check(rc, "wavefront_ed")
-    _build.LAUNCHES["wavefront_ed"] += 1
     return ed, ej

@@ -44,10 +44,11 @@ class Params:
     plotfolder: str = ""
 
     # engine knobs (no reference analog)
-    devices: int = 1              # multi-device sharding: not in the port yet
+    devices: int = 1              # shard the engine over N devices (-1: all)
     batch_pairs: int = 128        # accepted for CLI parity; the engine sizes its own batches
     k0: int = 63                  # initial band radius for k-escalation NN search
     device: str = "cuda"          # torch device of the engine ("cuda" or "cpu")
+    device_mesh: Optional[object] = None  # device list of a sharded run
 
     def ensure_outfolder(self) -> None:
         if self.outfolder and not os.path.exists(self.outfolder):

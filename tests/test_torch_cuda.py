@@ -870,6 +870,103 @@ def test_engine_on_card_matches_cpu():
     assert gpu.align_pairs(sub, scores) == cpu.align_pairs(sub, scores)
 
 
+def test_make_mesh_takes_the_first_cards():
+    _card()
+    from isocon_tpu_torch.parallel import make_mesh
+
+    every = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    assert make_mesh(1) == every[:1]
+    assert make_mesh(-1) == make_mesh() == every
+    assert make_mesh(len(every) + 3) == every      # fewer when fewer
+
+
+@pytest.mark.parametrize("mesh", ["cuda_x2", "cuda_x3", "cuda_and_cpu"])
+def test_sharder_matches_local_wrappers(mesh):
+    """A Sharder of 2 or 3 shards of the card, or of the card and the CPU
+    (whose block runs the plain versions on a replica of the pool), equals
+    the unsharded wrappers on a ragged batch of 151 pairs: K1 (windows 7
+    and 33), K2, K5 (bands 128 and 256, NW and HW) and K3 + K4 (band 256,
+    pairs that overflow included), every entry."""
+    from isocon_tpu_torch.parallel import Sharder
+
+    dev = _card()
+    cuda0, cpu = torch.device("cuda", 0), torch.device("cpu")
+    sh = Sharder({"cuda_x2": [cuda0] * 2, "cuda_x3": [cuda0] * 3,
+                  "cuda_and_cpu": [cuda0, cpu]}[mesh])
+    B, L = 151, 1056
+    q, t, ql, tl = _code_pairs(11, B, L)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), L, dev)
+    peq = tm.peq_table(pool, plen)
+    ia = np.arange(B, dtype=np.int32)
+    ib = ia + B
+    ia_t, ib_t = (torch.from_numpy(x).to(dev) for x in (ia, ib))
+    for win in (7, 33):
+        np.testing.assert_array_equal(
+            sh.myers_ed_pool(pool, plen, peq, ia, ib, L=L, win=win),
+            tm.myers_ed_pool(pool, plen, peq, ia_t, ib_t, L=L,
+                             win=win).cpu().numpy())
+    for got, want in zip(
+            sh.myers_hw_pool(pool, plen, peq, ia, ib, L=L, win=7),
+            tm.myers_hw_pool(pool, plen, peq, ia_t, ib_t, L=L, win=7)):
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    for Wp in (128, 256):
+        for hw_mode in (False, True):
+            for got, want in zip(
+                    sh.banded_ed_pool(pool, plen, ia, ib, Wp=Wp,
+                                      hw_mode=hw_mode),
+                    tw.banded_ed_pool(pool, plen, ia_t, ib_t, Wp=Wp,
+                                      hw_mode=hw_mode)):
+                np.testing.assert_array_equal(got, want.cpu().numpy())
+    scores = [np.full(B, 2, np.int32),
+              np.array([(-1, -2, -4)[i % 3] for i in range(B)], np.int32),
+              np.full(B, 2, np.int32), (np.arange(B) % 2).astype(np.int32)]
+    got = sh.sg_align_pool(pool, plen, ia, ib, *scores, Wp=256)
+    want = tac.fetch(tac.sg_align_pool(
+        pool, plen, ia_t, ib_t, *(torch.from_numpy(x).to(dev)
+                                  for x in scores), Wp=256))
+    assert got[-1].any() and not got[-1].all()    # some pairs overflow
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_engine_pool_replicas_follow_its_growth():
+    """An engine on the card and the CPU (whose block reads a replica of
+    the card's pool) equals an engine on the card alone while its pool
+    takes new rows and grows past its first 1,024 rows; the engine on the
+    card alone uses its pools in place (its Sharder names ``cuda:0``)."""
+    from isocon_tpu_torch.parallel import Sharder
+
+    dev = _card()
+    rng = random.Random(5)
+    local = PairEngine(device=dev)
+    assert local.sharder.devices == [torch.device("cuda", 0)]
+    mixed = PairEngine(device=dev, sharder=Sharder(
+        [torch.device("cuda", 0), torch.device("cpu")]))
+    scores = (2, -2, 2, 0)
+    for n in (100, 200, 900):
+        pairs = []
+        for _ in range(n):
+            a = "".join(rng.choice("ACGT")
+                        for _ in range(rng.randrange(80, 200)))
+            b = list(a)
+            for _ in range(rng.randrange(0, 10)):
+                b[rng.randrange(len(b))] = rng.choice("ACGT")
+            pairs.append((a, "".join(b)))
+        for got, want in zip(mixed.edit_distances(pairs),
+                             local.edit_distances(pairs)):
+            np.testing.assert_array_equal(got, want)
+        assert (mixed.align_pairs(pairs[:40], [scores] * 40)
+                == local.align_pairs(pairs[:40], [scores] * 40))
+    assert local.sharder._replicas == {}
+    # one copy each of the live pool's mat, lens and Peq planes (the
+    # alignments share the first two); the grown-out storage's are gone
+    kept = list(mixed.sharder._replicas.values())
+    assert len(kept) == 3
+    assert all(copy.device.type == "cpu" for _ref, copy, _rows in kept)
+    assert min(rows for _ref, _copy, rows in kept) > 1024
+
+
 def _sketch_inputs(N, D=512, seed=0):
     """Square-rooted Poisson counts (float32 [N, D]) with every fifth row
     a copy of an earlier one (exact ties) and a zero row, and lengths."""
