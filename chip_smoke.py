@@ -40,6 +40,16 @@ On one NVIDIA GPU (sm_90a) this script
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
    shape (band 512, L = 32,768) on a slice of the timed batch, K3/K4 at
    the runs' mean launch sizes against their launch at the table shape;
+   then ``phase_engine_routes``, the engine's host route (the CPU's, which
+   the card never takes) against the card's kernels, every entry equal:
+   (a) ``native.myers_ed_batch_k`` against K1 at the full window on the
+   4,096 K1 pairs under four kinds of cap, and against the card engine's
+   K5 route on 64 long pairs; (b) ``native.hw_traceback_batch(band=64)``
+   with caps against K2 at the full window; (c) a CPU engine against a
+   card engine on 4,000 real NN-search pairs of the 10k workload, NW and
+   HW, entries and counters; (d) the JAX engine's small-round route (64
+   NW or 256 HW pairs to the host) timed against the card's round trip,
+   in turns: readings only;
 4. runs ``pipeline`` (phase 1, ``get_candidates``, then phase 2,
    ``stat_filter``) through ``isocon_tpu_torch.cli`` on the card on the
    10,000-read workload (``isocon_tpu_torch.workload``), with every kernel
@@ -54,7 +64,9 @@ On one NVIDIA GPU (sm_90a) this script
    the ``"long"`` block of the same file; then ``pipeline --nontargeted``
    on the 10,000 reads of four gene families (104 isoforms), where K6
    scores each phase-1 round and K1 rescores the pairs it names with no
-   cap, against the ``"nontargeted"`` block;
+   cap, against the ``"nontargeted"`` block; each run fails if its
+   engine has ``native_cpu`` set or if its ``max_memory_allocated``
+   exceeds ``PEAK_BYTES`` by more than 2%;
 5. times each kernel and its plain version with CUDA events at the main
    path's shapes and computes each kernel's bound (``bound_ms``; K4's is
    also bounded by the chain of its longest walk); also K5 at band 256,
@@ -813,6 +825,308 @@ def phase_check_sketch(torch, np, sk, dev, real):
     return errs, want
 
 
+# ---------------------------------------------------------------------------
+# the engine's routes: the host route on the CPU against the card's
+# kernels, and the small rounds
+# ---------------------------------------------------------------------------
+ENGINE_ROUTES_SECONDS = 30     # the phase's budget
+UNCAPPED = 2 ** 31 - 1
+
+
+def check_card_engine(engine, label):
+    """A card engine never takes the host route."""
+    if engine.native_cpu:
+        raise AssertionError("%s: a card engine has native_cpu set" % label)
+
+
+def _ed_full_window(torch, myers, pool, plen, peq, ia, ib, L):
+    """K1 at the full window (exact) on pool rows, to the host."""
+    return myers.myers_ed_pool(pool, plen, peq, ia, ib, L=L,
+                               win=None).to(torch.int64).cpu().numpy()
+
+
+def _capped(np, d, k):
+    return np.where((k < 0) | (d <= k), d, -1)
+
+
+def routes_nw(torch, np, myers, native, dev, long_pairs, L=2048, B=4096):
+    """(a): ``myers_ed_batch_k`` against K1 at the full window on the
+    4,096 ``myers_pairs`` (no cap, 0, each pair's distance - 1, seeded
+    random caps), then against the card engine's K5 route on 64 long
+    pairs (cap 2,000, as ``phase_sharded``)."""
+    q, t, ql, tl = myers_pairs(np, B, L)
+    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+    peq = myers.peq_table(pool, plen)
+    ia = torch.arange(B, dtype=torch.int32, device=dev)
+    ed = _ed_full_window(torch, myers, pool, plen, peq, ia, ia + B, L)
+    rs = np.random.default_rng(13)
+    caps = {"none": np.full(B, -1), "0": np.zeros(B, np.int64),
+            "ed-1": ed - 1, "random": rs.integers(-1, 800, B)}
+    err = 0
+    for name, k in caps.items():
+        t0 = time.perf_counter()
+        got = native.myers_ed_batch_k(q, ql, t, tl, k)
+        secs = time.perf_counter() - t0
+        err = max(err, _max_err(np, got, _capped(np, ed, k)))
+        log("engine routes (a): myers_ed_batch_k, caps %s, %d pairs at L "
+            "%d in %.3f s: %d of them -1; max abs err against K1 (full "
+            "window) %d" % (name, B, L, secs, int((got < 0).sum()), err))
+    from isocon_tpu_torch.ops.engine import PairEngine
+
+    card = PairEngine(device="cuda")
+    check_card_engine(card, "engine routes (a)")
+    k = np.full(len(long_pairs), 2000)
+    want, _ = card.edit_distances(long_pairs, k_cap=k)
+    planes = _planes(np, long_pairs)
+    t0 = time.perf_counter()
+    got = native.myers_ed_batch_k(*planes, k)
+    secs = time.perf_counter() - t0
+    err = max(err, _max_err(np, got, want))
+    if not card.counters["ed_pairs_wavefront"]:
+        raise AssertionError("engine routes (a): K5 did not run")
+    log("engine routes (a): myers_ed_batch_k on %d long pairs (cap 2,000) "
+        "in %.3f s against the card engine's K5 route (rungs %s): max abs "
+        "err %d" % (len(long_pairs), secs, json.dumps(
+            {"%s %d" % r: v for r, v in card.wavefront_rungs.items()}), err))
+    if err:
+        raise AssertionError("engine routes (a): the host route differs "
+                             "from the card's (max abs err %d)" % err)
+
+
+def _planes(np, pairs):
+    """(q, qlen, t, tlen) padded uint8 code planes of string pairs."""
+    from isocon_tpu_torch.ops.encode import encode_seq
+
+    L = max(1, max(max(len(a), len(b)) for a, b in pairs))
+    q = np.zeros((len(pairs), L), np.uint8)
+    t = np.zeros_like(q)
+    for i, (a, b) in enumerate(pairs):
+        q[i, :len(a)] = encode_seq(a).view(np.uint8)
+        t[i, :len(b)] = encode_seq(b).view(np.uint8)
+    return (q, np.array([len(a) for a, _ in pairs]), t,
+            np.array([len(b) for _, b in pairs]))
+
+
+def routes_hw(torch, np, myers, native, dev, L=2048, B=4096):
+    """(b): ``hw_traceback_batch(band=64)`` with seeded caps against K2 at
+    the full window on ``hw_pairs``: ed on every entry, ej wherever
+    ed >= 0."""
+    q, t, ql, tl = hw_pairs(np, B, L)
+    pool = torch.from_numpy(np.concatenate([q, t])).to(dev)
+    plen = torch.from_numpy(np.concatenate([ql, tl])).to(dev)
+    peq = myers.peq_table(pool, plen)
+    ia = torch.arange(B, dtype=torch.int32, device=dev)
+    ed, ej = (x.cpu().numpy().astype(np.int64) for x in myers.myers_hw_pool(
+        pool, plen, peq, ia, ia + B, L=L, win=None))
+    caps = np.random.default_rng(14).integers(0, 256, B)
+    caps[::7] = ed[::7]                    # on the distance itself
+    caps[3::7] = np.maximum(ed[3::7] - 1, 0)
+    t0 = time.perf_counter()
+    res = native.hw_traceback_batch(_strings(np, q, t, ql, tl), band=64,
+                                    k_cap=caps)
+    secs = time.perf_counter() - t0
+    got = np.array([r[0] for r in res], np.int64)
+    gej = np.array([r[2] + 1 for r in res], np.int64)
+    want = _capped(np, ed, caps)
+    known = want >= 0
+    err = max(_max_err(np, got, want), _max_err(np, gej[known], ej[known]))
+    log("engine routes (b): hw_traceback_batch(band=64) on %d hw_pairs "
+        "with caps in %.3f s: %d under their cap; max abs err against K2 "
+        "(full window) %d" % (B, secs, int(known.sum()), err))
+    if err or known.all() or not known.any():
+        raise AssertionError("engine routes (b): the host route differs "
+                             "from K2 (max abs err %d) or the caps cut "
+                             "all or none" % err)
+
+
+def real_pairs(np, work, n_reads=N_READS, per_query=8, step=20):
+    """A few thousand NN-search pairs of the 10k workload: the reads
+    sorted by length as ``graph/nn.py`` sorts them, every ``step``-th
+    read against the next ``per_query``, capped as phase 1's first round
+    caps them (min(63, length)).  Returns (reads, ia, ib, caps)."""
+    from isocon_tpu_torch.io import read_fasta
+    from isocon_tpu_torch.workload import write_reads
+
+    path = os.path.join(work, "route_reads.fa")
+    write_reads(path, n_reads)
+    seqs = [s for _a, s in read_fasta(path)]
+    os.unlink(path)
+    order = sorted(range(len(seqs)), key=lambda i: (len(seqs[i]), seqs[i]))
+    q = np.repeat(np.arange(0, len(order) - per_query, step), per_query)
+    t = q + np.tile(np.arange(1, per_query + 1), q.size // per_query)
+    o = np.asarray(order)
+    lens = np.array([len(s) for s in seqs])
+    caps = np.minimum(63, lens[o[q]])
+    return seqs, o[q], o[t], caps
+
+
+def routes_engines(torch, np, dev, reads, ia, ib, caps):
+    """(c): a CPU engine (the host route) against a card engine on the
+    real pairs, ``edit_distances_idx`` NW and HW with phase 1's caps:
+    every entry and every counter the host route keeps must be equal."""
+    from isocon_tpu_torch.ops.engine import PairEngine
+
+    host = PairEngine(device="cpu")
+    card = PairEngine(device="cuda")
+    if not host.native_cpu:
+        raise AssertionError("engine routes (c): the CPU engine is not on "
+                             "the host route")
+    check_card_engine(card, "engine routes (c)")
+    err = 0
+    secs = {}
+    for hw_mode in (False, True):
+        out = []
+        for role, engine in (("host", host), ("card", card)):
+            ids = engine.add_seqs(reads)
+            t0 = time.perf_counter()
+            out.append(engine.edit_distances_idx(ids[ia], ids[ib], k_cap=caps,
+                                                 hw_mode=hw_mode))
+            secs[(hw_mode, role)] = time.perf_counter() - t0
+        (ed, ej), (wed, wej) = out
+        known = wed >= 0
+        err = max(err, _max_err(np, ed, wed), _max_err(np, ej[known],
+                                                       wej[known]))
+        log("engine routes (c): %s on %d real pairs (caps min(63, len)): "
+            "host %.3f s, card %.3f s; %d under their cap; max abs err %d"
+            % ("HW" if hw_mode else "NW", len(ia), secs[(hw_mode, "host")],
+               secs[(hw_mode, "card")], int(known.sum()), err))
+    route_only = ("ed_pairs_full_window", "ed_pairs_wavefront")
+    for key, value in host.counters.items():
+        if (not key.endswith("seconds") and key not in route_only
+                and card.counters[key] != value):
+            raise AssertionError("engine routes (c): counter %s: host %d, "
+                                 "card %d" % (key, value, card.counters[key]))
+    log("engine routes (c): counters equal (%s); the card's own: K1/K2 "
+        "rungs %s, full window %d" % (
+            json.dumps({k: v for k, v in host.counters.items() if not
+                        k.endswith("seconds") and k not in route_only}),
+            json.dumps({"%s %d" % r: v for r, v in card.myers_rungs.items()}),
+            card.counters["ed_pairs_full_window"]))
+    if err:
+        raise AssertionError("engine routes (c): the host route differs "
+                             "from the card's (max abs err %d)" % err)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def routes_small_rounds(torch, np, myers, wavefront, native, dev, reads,
+                        ia, ib, caps, long_pairs, turns=7):
+    """(d): the JAX engine's small-round route (ED rounds of <= 64 NW or
+    <= 256 HW pairs to the host, ``isocon_tpu/ops/engine.py:749-769``)
+    against the card's round trip, host and card in turns: 64 real NW
+    pairs of the 10k workload, ``myers_ed_batch_k`` (no cap) against K1's
+    launch and collect (window 7, L 2,048); 256 HW pairs,
+    ``hw_traceback_batch(band=64)`` (phase 1's caps) against K2's; 64
+    long pairs, ``myers_ed_batch_k`` (no cap) against K5's (band 128, L
+    32,768).  Logs the medians of ``turns``: the route is not switched."""
+    from isocon_tpu_torch.ops.engine import PairEngine
+
+    engine = PairEngine(device="cuda")
+    check_card_engine(engine, "engine routes (d)")
+    sharder = engine.sharder
+
+    def pooled(pairs, L):
+        seqs = sorted({s for p in pairs for s in p})
+        row = {s: r for r, s in enumerate(seqs)}
+        q, ql, _t, _tl = _planes(np, [(s, s) for s in seqs])
+        mat = np.full((len(seqs), L), 6, np.uint8)
+        mat[:, :q.shape[1]] = q
+        pool = torch.from_numpy(mat).to(dev)
+        plen = torch.from_numpy(ql.astype(np.int32)).to(dev)
+        pa = np.array([row[a] for a, _ in pairs], np.int32)
+        pb = np.array([row[b] for _, b in pairs], np.int32)
+        return pool, plen, pa, pb
+
+    def run(name, host_fn, card_fn):
+        host_fn(), card_fn()                     # warm both
+        hs, cs = [], []
+        for _ in range(turns):
+            t0 = time.perf_counter()
+            host_fn()
+            hs.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card_fn()
+            cs.append(1e3 * (time.perf_counter() - t0))
+        log("engine routes (d) %s: host %.3f ms (min %.3f), card %.3f ms "
+            "(min %.3f), medians of %d turns"
+            % (name, _median(hs), min(hs), _median(cs), min(cs), turns))
+
+    nw = [(reads[a], reads[b]) for a, b in zip(ia[:64], ib[:64])]
+    planes = _planes(np, nw)
+    pool, plen, pa, pb = pooled(nw, 2048)
+    peq = myers.peq_table(pool, plen)
+    run("NW 64 pairs, 10k reads, L 2048 (myers_ed_batch_k / K1 win 7)",
+        lambda: native.myers_ed_batch_k(*planes, np.full(64, UNCAPPED)),
+        lambda: sharder.collect(sharder.launch(
+            myers.myers_ed_pool, (pool, plen, peq), (pa, pb), L=2048,
+            win=7)))
+    hw = [(reads[a], reads[b]) for a, b in zip(ia[:256], ib[:256])]
+    pool, plen, pa, pb = pooled(hw, 2048)
+    peq = myers.peq_table(pool, plen)
+    run("HW 256 pairs, 10k reads, L 2048 (hw_traceback_batch / K2 win 7)",
+        lambda: native.hw_traceback_batch(hw, band=64, k_cap=caps[:256]),
+        lambda: sharder.collect(sharder.launch(
+            myers.myers_hw_pool, (pool, plen, peq), (pa, pb), L=2048,
+            win=7)))
+    planes = _planes(np, long_pairs)
+    pool, plen, pa, pb = pooled(long_pairs, 32768)
+    run("NW 64 pairs, long reads, L 32768 (myers_ed_batch_k / K5 Wp 128)",
+        lambda: native.myers_ed_batch_k(*planes, np.full(len(long_pairs),
+                                                         UNCAPPED)),
+        lambda: sharder.collect(sharder.launch(
+            wavefront.banded_ed_pool, (pool, plen), (pa, pb), Wp=128)))
+
+
+def phase_engine_routes(torch, np, myers, wavefront, native, dev):
+    """The engine's host route (``native/myers_ed.cc``,
+    ``native/hw_traceback.cc``) against the card's kernels, and the
+    small-round readings: (a)-(d) above, within
+    ``ENGINE_ROUTES_SECONDS``; each step raises on a difference.  Kernel
+    launches made here do not count (each main path sets the counts to 0
+    first)."""
+    from isocon_tpu_torch.io import read_fasta
+    from isocon_tpu_torch.ops._build import BUILD_DIR
+    from isocon_tpu_torch.workload import write_long_reads
+
+    secs = {}
+    t0 = time.perf_counter()
+    native.build("myers_ed")
+    path = os.path.join(BUILD_DIR, "route_long.fa")
+    write_long_reads(path, 72)
+    long_reads = [s for _a, s in read_fasta(path)]
+    os.unlink(path)
+    # reads i and i + 8 are copies of one isoform
+    long_pairs = [(long_reads[i], long_reads[i + 8]) for i in range(64)]
+    secs["inputs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes_nw(torch, np, myers, native, dev, long_pairs)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes_hw(torch, np, myers, native, dev)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reads, ia, ib, caps = real_pairs(np, BUILD_DIR)
+    routes_engines(torch, np, dev, reads, ia, ib, caps)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes_small_rounds(torch, np, myers, wavefront, native, dev, reads, ia,
+                        ib, caps, long_pairs)
+    secs["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    total = sum(secs.values())
+    log("engine routes phase: %s s, %.1f s in all (budget %d s)"
+        % (", ".join("(%s) %.1f" % kv for kv in secs.items()), total,
+           ENGINE_ROUTES_SECONDS))
+    if total > ENGINE_ROUTES_SECONDS:
+        raise AssertionError("engine routes phase took %.1f s, over its "
+                             "%d s" % (total, ENGINE_ROUTES_SECONDS))
+
+
 def _sha256(path):
     with open(path, "rb") as fh:
         data = fh.read()
@@ -820,6 +1134,12 @@ def _sha256(path):
 
 
 VOLUME = ("ed_pairs", "ed_calls", "align_pairs", "align_calls")
+# each unsharded main path's max_memory_allocated before its alignment
+# chunks were all launched ahead of their collect (NVIDIA H100 80GB HBM3);
+# a run may exceed it by PEAK_SLACK at most
+PEAK_BYTES = {"10k": 3701106176, "long": 4961243136,
+              "nontargeted": 4109443584}
+PEAK_SLACK = 0.02
 
 
 def phase_main_path(torch, _build, dev, long_reads=False,
@@ -874,6 +1194,7 @@ def phase_main_path(torch, _build, dev, long_reads=False,
     t0 = time.perf_counter()
     engine, phase1 = run(params)
     torch.cuda.synchronize()
+    check_card_engine(engine, label)
     if mesh is not None and engine.sharder.devices != list(mesh):
         raise AssertionError("%s: the engine is not on the mesh" % label)
     secs = time.perf_counter() - t0
@@ -911,11 +1232,22 @@ def phase_main_path(torch, _build, dev, long_reads=False,
            c["align_seconds"] - phase1["align_seconds"],
            c["align_calls"] - phase1["align_calls"], c["hw_survivors"],
            c["hw_traceback_seconds"], json.dumps(launches2)))
+    peak = torch.cuda.max_memory_allocated(dev)
     log("whole run: ed_pairs_full_window %d, ed_pairs_wavefront %d (phase 1 "
         "%d), align_overflows %d, max_memory_allocated %d bytes"
         % (c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
-           phase1["ed_pairs_wavefront"], c["align_overflows"],
-           torch.cuda.max_memory_allocated(dev)))
+           phase1["ed_pairs_wavefront"], c["align_overflows"], peak))
+    if mesh is None:
+        cell = "long" if long_reads else (
+            "nontargeted" if nontargeted else "10k")
+        limit = PEAK_BYTES[cell] * (1 + PEAK_SLACK)
+        log("%s: max_memory_allocated %d bytes, %.4f x the %d of the "
+            "launch-then-collect loops' parent (limit %.2f x)"
+            % (label, peak, peak / PEAK_BYTES[cell], PEAK_BYTES[cell],
+               1 + PEAK_SLACK))
+        if peak > limit:
+            raise AssertionError("%s: max_memory_allocated %d bytes, over "
+                                 "%d" % (label, peak, limit))
     if nontargeted:
         log("sketch: %d rows in %.2f s in phase 1 (K6 launches: %d first "
             "passes, %d merges, %d of the scores entry), %d rows in phase 2 "
@@ -1046,12 +1378,14 @@ def sharded_engine_routes(torch, np, _build, dev, cases):
         return out, dict(_build.LAUNCHES)
 
     local = PairEngine(device="cuda")
+    check_card_engine(local, "sharded (a)")
     want, want_launches = run(local)
     log("sharded (a): local engine's launches %s" % json.dumps(
         want_launches))
     errs = {}
     for n in (2, 3):
         engine = PairEngine(device="cuda", sharder=Sharder([dev] * n))
+        check_card_engine(engine, "sharded (a)")
         got, launches = run(engine)
         errs["myers_ed"] = max(errs.get("myers_ed", 0), _max_err(
             np, got["myers_ed"][0], want["myers_ed"][0]))
@@ -1117,6 +1451,7 @@ def sharded_phase1(torch, _build, dev, mesh):
     _build.reset_launches()
     engine = run(params)
     torch.cuda.synchronize()
+    check_card_engine(engine, "sharded (c)")
     digest, data = _sha256(os.path.join(out, "candidates_converged.fa"))
     log("sharded (c): get_candidates on %d reads, %d shards: %d "
         "candidates, sha256 %s; %s; launches %s"
@@ -1141,8 +1476,9 @@ def sharded_seam(_build, dev, cases):
     from isocon_tpu_torch.parallel import dryrun
 
     ed_pairs, _hw, align_pairs, scores, _long = cases
-    want = dryrun.engine_results(PairEngine(device="cuda"), ed_pairs,
-                                 align_pairs, scores)
+    local = PairEngine(device="cuda")
+    check_card_engine(local, "sharded (d)")
+    want = dryrun.engine_results(local, ed_pairs, align_pairs, scores)
     got = dryrun.run(ed_pairs, align_pairs, scores, procs=2, local=1,
                      device="cuda", timeout=150, workdir=_build.BUILD_DIR)
     for r in got:
@@ -1172,6 +1508,7 @@ def sharded_cli(torch, _build):
         _run, params = cli.parse(["pipeline", "-fl_reads", reads,
                                   "-outfolder", out, "--devices", ndev])
         engine = cli.make_engine(params)
+        check_card_engine(engine, "sharded (e)")
         got = params.device_mesh
         if got != want or engine.sharder.n != len(want or [0]):
             raise AssertionError("sharded (e): --devices %s gives the mesh "
@@ -1843,6 +2180,7 @@ def main() -> None:
     # kept on the host while the pipelines run (their peak memory is read)
     real, real_plain = tuple(x.cpu() for x in real), real_plain.cpu()
     torch.cuda.empty_cache()
+    phase_engine_routes(torch, np, myers, wavefront, native, dev)
     errs = {"myers_ed": err1, "myers_hw": err2, "affine_fwd": err3,
             "affine_walk": err4, "wavefront_ed": err5, **errs6}
     # each path sets the counts to 0 just before it runs (comparison

@@ -1,10 +1,11 @@
-"""Host (C++) HW traceback of the ends-ignored candidate graph.
+"""Host (C++) libraries of the engine: the HW traceback of the
+ends-ignored candidate graph and the CPU route's NW edit distances.
 
-``hw_traceback.cc`` is built with ``g++ -O3 -shared -fPIC`` at first use
-into ``isocon_tpu_torch/_build/`` (named by a hash of the source and the
-flags) and loaded with ``ctypes``.  A failed build raises: there is no
-fallback to the per-pair numpy oracle, which would take hours at the
-survivor counts of a real run and hide the fault.
+``hw_traceback.cc`` and ``myers_ed.cc`` are each built with ``g++ -O3
+-shared -fPIC`` at first use into ``isocon_tpu_torch/_build/`` (named by a
+hash of the source and the flags) and loaded with ``ctypes``.  A failed
+build raises: there is no fallback to a per-pair Python loop, which would
+take hours at the pair counts of a real run and hide the fault.
 """
 from __future__ import annotations
 
@@ -13,56 +14,66 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from ..ops._build import BUILD_DIR
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                    "hw_traceback.cc")
+_HERE = os.path.dirname(os.path.abspath(__file__))
 _FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17", "-pthread"]
 _LOCK = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+# source name -> {C entry: (restype, argtypes)}
+_ENTRIES = {
+    "hw_traceback": {"hw_traceback_batch": (None, [_P, _P, _P, _P, _I, _I,
+                                                   _P, _P, _I, _P, _I, _P])},
+    "myers_ed": {"myers_ed": (_I, [_P, _I, _P, _I, _I]),
+                 "myers_ed_batch_k": (None, [_P, _P, _P, _P, _I, _I, _P, _I,
+                                             _P])},
+}
 
 
-def _lib_path() -> str:
+def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(_SRC, "rb") as fh:
+    with open(os.path.join(_HERE, name + ".cc"), "rb") as fh:
         h.update(fh.read())
     h.update(" ".join(_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        "libhw_traceback_%s.so" % h.hexdigest()[:16])
+    return os.path.join(BUILD_DIR, "lib%s_%s.so" % (name, h.hexdigest()[:16]))
 
 
-def build() -> str:
-    """Compile the library if it has no current build; returns its path.
+def build(name: str = "hw_traceback") -> str:
+    """Compile ``<name>.cc`` if it has no current build; returns its path.
     Raises with the compiler's output if the build fails."""
-    out = _lib_path()
+    out = _lib_path(name)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (out, os.getpid())
-    proc = subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+    proc = subprocess.run(["g++", *_FLAGS, "-o", tmp,
+                           os.path.join(_HERE, name + ".cc")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
-        raise RuntimeError("g++ failed for hw_traceback.cc:\n" + proc.stdout)
+        raise RuntimeError("g++ failed for %s.cc:\n%s" % (name, proc.stdout))
     os.replace(tmp, out)
     return out
 
 
-def get_lib() -> ctypes.CDLL:
-    global _lib
+def get_lib(name: str = "hw_traceback") -> ctypes.CDLL:
+    """The loaded library of ``<name>.cc`` (built on first use)."""
     with _LOCK:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            P, I = ctypes.c_void_p, ctypes.c_int64
-            lib.hw_traceback_batch.restype = None
-            lib.hw_traceback_batch.argtypes = [P, P, P, P, I, I, P, P, I, P,
-                                               I, P]
-            _lib = lib
-        return _lib
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            for entry, (res, args) in _ENTRIES[name].items():
+                fn = getattr(lib, entry)
+                fn.restype = res
+                fn.argtypes = args
+            _libs[name] = lib
+        return lib
 
 
 def _nthreads() -> int:
@@ -127,4 +138,45 @@ def hw_traceback_batch(pairs: Sequence[Tuple[str, str]], band: int = 128,
         nul = int(np.argmin(row)) if row[-1] == 0 else ops_stride
         out.append((ed, int(meta[i, 1]), int(meta[i, 2]),
                     row[:nul].tobytes().decode("latin1")))
+    return out
+
+
+def _codes(x) -> np.ndarray:
+    if isinstance(x, (bytes, bytearray)):
+        return np.frombuffer(x, dtype=np.uint8)
+    return np.ascontiguousarray(x, dtype=np.uint8)
+
+
+def myers_ed(q, t, k: int = -1) -> int:
+    """Unit-cost NW edit distance of byte codes ``q`` and ``t`` (bytes or
+    uint8 arrays); -1 where it exceeds ``k`` (k < 0: no cutoff)."""
+    qa, ta = _codes(q), _codes(t)
+    return int(get_lib("myers_ed").myers_ed(qa.ctypes.data, len(qa),
+                                             ta.ctypes.data, len(ta), int(k)))
+
+
+def myers_ed_batch_k(qs: np.ndarray, qlens: np.ndarray, ts: np.ndarray,
+                     tlens: np.ndarray, ks: np.ndarray) -> np.ndarray:
+    """NW edit distances of the rows of padded uint8 [B, L] code planes,
+    pair i being qs[i, :qlens[i]] against ts[i, :tlens[i]], with a cutoff
+    ks[i] each (k < 0: none), threaded over up to 16 host cores.  Returns
+    int64 [B], -1 where the distance exceeds its cutoff."""
+    qs = np.ascontiguousarray(qs, dtype=np.uint8)
+    ts = np.ascontiguousarray(ts, dtype=np.uint8)
+    if qs.ndim != 2 or qs.shape != ts.shape:
+        raise ValueError("qs and ts must be [B, L] of one shape")
+    B, L = qs.shape
+    ql = np.ascontiguousarray(qlens, dtype=np.int64)
+    tl = np.ascontiguousarray(tlens, dtype=np.int64)
+    ka = np.ascontiguousarray(ks, dtype=np.int64)
+    if not (ql.shape == tl.shape == ka.shape == (B,)):
+        raise ValueError("qlens, tlens and ks must have B entries")
+    if B and (max(int(ql.max()), int(tl.max())) > L
+              or min(int(ql.min()), int(tl.min())) < 0):
+        raise ValueError("a length lies outside the rows")
+    out = np.empty(B, dtype=np.int64)
+    if B:
+        get_lib("myers_ed").myers_ed_batch_k(
+            qs.ctypes.data, ql.ctypes.data, ts.ctypes.data, tl.ctypes.data,
+            L, B, ka.ctypes.data, _nthreads(), out.ctypes.data)
     return out

@@ -16,7 +16,7 @@ longest walk; ``affine.ops_to_alignment_counts`` decodes a row.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,23 +39,28 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 def affine_fwd(pool: torch.Tensor, qrow: torch.Tensor, trow: torch.Tensor,
                n: torch.Tensor, m: torch.Tensor, match: torch.Tensor,
                mismatch: torch.Tensor, gopen: torch.Tensor,
-               gext: torch.Tensor, *, Wp: int):
-    """K3 over pool rows: -> (best, ei, ej) int32 [B], dirs uint8 [B, S, W]."""
+               gext: torch.Tensor, *, Wp: int, nm_max: Optional[int] = None):
+    """K3 over pool rows: -> (best, ei, ej) int32 [B], dirs uint8 [B, S, W].
+    ``nm_max``: the longest n + m, if the caller knows it (see
+    ``affine_fwd_cuda``)."""
     if pool.device.type == "cpu":
         return sg_forward_plain(pool[qrow.long()], pool[trow.long()], n, m,
                                 match, mismatch, gopen, gext, Wp)
     return affine_fwd_cuda(pool, qrow, trow, n, m, match, mismatch, gopen,
-                           gext, Wp=Wp, warps=0)
+                           gext, Wp=Wp, warps=0, nm_max=nm_max)
 
 
 def affine_fwd_cuda(pool: torch.Tensor, qrow: torch.Tensor,
                     trow: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
                     match: torch.Tensor, mismatch: torch.Tensor,
                     gopen: torch.Tensor, gext: torch.Tensor, *, Wp: int,
-                    warps: int):
+                    warps: int, nm_max: Optional[int] = None):
     """K3's launch on CUDA tensors.  ``warps``: the register kernel's warps
     a pair (1, 2 or 4; 0 lets the launch size choose, as ``affine_fwd``
-    does), so that its forms can be timed at one batch size."""
+    does), so that its forms can be timed at one batch size.  ``nm_max``:
+    the longest n + m of the batch (at least its true value), which sizes
+    the direction scratch; without it the launch reads it from ``n`` and
+    ``m``, which waits for the stream."""
     if Wp not in KERNEL_WPS:
         raise ValueError("no affine kernel for band width %d" % Wp)
     if pool.dtype != torch.uint8 or pool.shape[1] % 8:
@@ -64,7 +69,9 @@ def affine_fwd_cuda(pool: torch.Tensor, qrow: torch.Tensor,
     dev = pool.device
     B = qrow.shape[0]
     W = Wp // 2
-    S = max(int((n + m).max()) - 1, 1) if B else 1
+    if nm_max is None:
+        nm_max = int((n + m).max()) if B else 0
+    S = max(int(nm_max) - 1, 1)
     best = torch.empty(B, dtype=torch.int32, device=dev)
     ei = torch.empty_like(best)
     ej = torch.empty_like(best)
@@ -121,19 +128,25 @@ def affine_walk(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, *,
 def sg_align_pool(pool: torch.Tensor, plen: torch.Tensor, ia: torch.Tensor,
                   ib: torch.Tensor, match: torch.Tensor,
                   mismatch: torch.Tensor, gopen: torch.Tensor,
-                  gext: torch.Tensor, *, Wp: int):
+                  gext: torch.Tensor, *, Wp: int,
+                  nm_max: Optional[int] = None):
     """Semi-global alignment of pool rows ia[b] (query) vs ib[b] (target)
     in a band of width Wp.  Scores are per pair (mismatch < 0; open/ext
-    as positive penalties).  Returns (best, ei, ej, ops, fi, fj, overflow)
-    on the pool's device."""
+    as positive penalties).  ``nm_max``: the longest n + m of the pairs
+    (at least its true value), from the caller, so that the launches do
+    not wait for the stream; None reads it from the pool's lengths.
+    Returns (best, ei, ej, ops, fi, fj, overflow) on the pool's device.
+    K3's direction scratch is dropped once K4 is queued, so the caching
+    allocator reuses it in stream order."""
     ia = ia.long()
     ib = ib.long()
     n = plen[ia]
     m = plen[ib]
+    if nm_max is None:
+        nm_max = int((n + m).max()) if ia.numel() else 0
     best, ei, ej, dirs = affine_fwd(pool, ia, ib, n, m, match, mismatch,
-                                    gopen, gext, Wp=Wp)
-    nops = int((n + m).max()) + 1 if ia.numel() else 1
-    ops, fi, fj, ov = affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+                                    gopen, gext, Wp=Wp, nm_max=nm_max)
+    ops, fi, fj, ov = affine_walk(dirs, ei, ej, Wp=Wp, nops=int(nm_max) + 1)
     return best, ei, ej, ops, fi, fj, ov
 
 

@@ -21,23 +21,37 @@ Every kernel batch (K1/K2, K5, K3 + K4) goes through a
 mesh's blocks, each on its device.  The pools live on the sharder's first
 device of this process, where the sketch (K6) runs unsharded.  The
 counters count the caller's pairs, never the sharder's padding, so the
-engine volume is the unsharded run's.
+engine volume is the unsharded run's.  A round's batches are all launched
+before the first is collected, and they are collected in launch order:
+every batch has a block on each device of the mesh, and each device runs
+its blocks on one stream, so a batch never completes before an earlier
+one.
+
+On the CPU, without a sharder from the caller, edit distances take the
+host C++ route instead (``native_cpu``, as the JAX engine's CPU backend):
+threaded full-width Myers for NW (``native/myers_ed.cc``) and the banded
+HW traceback for HW mode (``native/hw_traceback.cc``); the results are the
+same exact distances.  ``ISOCON_NO_NATIVE=1`` keeps the plain K1/K2/K5.
+Alignments always run the banded K3/K4 (their plain versions on the CPU).
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from . import oracle
 from .affine import BandOverflow, ops_to_alignment_counts
 from .encode import encode_seq
+from .affine_cuda import fetch, sg_align_pool
 from .myers import (myers_certifies, myers_certifies_hw, myers_ed_pool,
                     myers_hw_pool, peq_table)
 from .wavefront import SMALL_WP, band_certifies, banded_ed_pool
-from ..parallel.sharding import Sharder
+from ..parallel.sharding import Sharder, upload
 
 # Band width -> Myers window words (certification radius 32*(win//2));
 # wider bands run the full-width window
@@ -88,8 +102,9 @@ class _SeqPool:
 
     Row 0 is a length-1 sentinel.  New rows collect on the host and reach
     the device in one copy per ``tensors()`` call, with their Peq planes
-    computed there.  ``with_peq=False`` (pools the Myers kernels never
-    read) keeps no planes: ``peq`` is an empty tensor."""
+    computed there.  On a card the copy is queued from pinned memory and
+    does not wait for the stream.  ``with_peq=False`` (pools the Myers
+    kernels never read) keeps no planes: ``peq`` is an empty tensor."""
 
     def __init__(self, L: int, device: torch.device, min_rows: int = 0,
                  with_peq: bool = True):
@@ -142,8 +157,8 @@ class _SeqPool:
             for x, e in enumerate(self._pending):
                 block[x, : len(e)] = e.view(np.uint8)
                 lens[x] = len(e)
-            self.mat[r0:r0 + k] = torch.from_numpy(block).to(self.device)
-            self.lens[r0:r0 + k] = torch.from_numpy(lens).to(self.device)
+            self.mat[r0:r0 + k] = upload(block, self.device)
+            self.lens[r0:r0 + k] = upload(lens, self.device)
             if self._peq_words:
                 for s in range(r0, r0 + k, PEQ_CHUNK_ROWS):
                     e = min(s + PEQ_CHUNK_ROWS, r0 + k)
@@ -151,6 +166,52 @@ class _SeqPool:
             self._pending = []
             self._dev_rows = self.n
         return self.mat[: self.n], self.lens[: self.n], self.peq[: self.n]
+
+
+class _HostPool:
+    """Host-side interned sequence pool of the CPU route (the JAX
+    engine's ``_HostPool``): unique strings encode once into a growing
+    [cap, width] uint8 matrix, and a batch is one numpy row gather.  The
+    host library reads only each row's length prefix."""
+
+    def __init__(self):
+        self.rows: dict = {}
+        self.mat = np.empty((1024, 256), dtype=np.uint8)
+        self.lens = np.zeros(1024, dtype=np.int64)
+        self.n = 0
+
+    def intern(self, s: str, enc) -> int:
+        r = self.rows.get(s)
+        if r is not None:
+            return r
+        e = enc(s).view(np.uint8)
+        cap, width = self.mat.shape
+        if len(e) > width:
+            w = max(256, 1 << int(len(e) - 1).bit_length())
+            mat = np.empty((cap, w), dtype=np.uint8)
+            mat[:, :width] = self.mat
+            self.mat = mat
+            width = w
+        if self.n == cap:
+            mat = np.empty((2 * cap, width), dtype=np.uint8)
+            mat[:cap] = self.mat
+            self.mat = mat
+            lens = np.zeros(2 * cap, dtype=np.int64)
+            lens[:cap] = self.lens
+            self.lens = lens
+        self.mat[self.n, : len(e)] = e
+        self.lens[self.n] = len(e)
+        r = self.rows[s] = self.n
+        self.n += 1
+        return r
+
+    def gather(self, pairs, idxs, enc):
+        """(q, qlen, t, tlen) batch arrays for pairs[idxs]."""
+        ia = np.fromiter((self.intern(pairs[i][0], enc) for i in idxs),
+                         dtype=np.int64, count=len(idxs))
+        ib = np.fromiter((self.intern(pairs[i][1], enc) for i in idxs),
+                         dtype=np.int64, count=len(idxs))
+        return self.mat[ia], self.lens[ia], self.mat[ib], self.lens[ib]
 
 
 class _PairView:
@@ -181,6 +242,11 @@ class PairEngine:
     ``parallel.Sharder`` that runs every kernel batch over its mesh; the
     engine's device is then the sharder's (``device`` may name its type).
     Without one the engine makes a Sharder of its own device.
+
+    ``native_cpu`` (a plain attribute, which tests may set): edit
+    distances take the host C++ route.  It is on when the device is the
+    CPU, the caller passed no sharder and ``ISOCON_NO_NATIVE`` is unset;
+    on a card it is always off.
     """
 
     def __init__(self, device=None, sharder=None):
@@ -191,7 +257,11 @@ class PairEngine:
                                  % (device, sharder.device))
             device = sharder.device
         self.device = resolve_device(device)
+        self.native_cpu = (self.device.type == "cpu" and sharder is None
+                           and not os.environ.get("ISOCON_NO_NATIVE"))
         self.sharder = sharder or Sharder([self.device])
+        self._host_pool = _HostPool()
+        self._tab_host_rows: Optional[np.ndarray] = None
         self._enc_cache: dict = {}
         self._pools: dict = {}
         self._pool_reserve = 0
@@ -281,15 +351,21 @@ class PairEngine:
         """Sequence lengths for engine-table ids (int64)."""
         return self._tab_lens[np.asarray(ids, dtype=np.int64)]
 
-    def _pool_rows_for(self, pool, Lb: int, ids: np.ndarray) -> np.ndarray:
-        """Table ids -> pool rows for bucket Lb (interning the misses)."""
-        rm = self._tab_pool_rows.get(Lb)
+    def _grown_rowmap(self, rm: Optional[np.ndarray], dtype) -> np.ndarray:
+        """A table-id -> row map covering every table id (-1: not yet
+        interned), ``rm`` itself while it is large enough."""
         n = len(self._tab_seqs)
         if rm is None or rm.size < n:
-            new = np.full(max(1024, 2 * n), -1, dtype=np.int32)
+            new = np.full(max(1024, 2 * n), -1, dtype=dtype)
             if rm is not None:
                 new[: rm.size] = rm
-            rm = self._tab_pool_rows[Lb] = new
+            return new
+        return rm
+
+    def _pool_rows_for(self, pool, Lb: int, ids: np.ndarray) -> np.ndarray:
+        """Table ids -> pool rows for bucket Lb (interning the misses)."""
+        rm = self._tab_pool_rows[Lb] = self._grown_rowmap(
+            self._tab_pool_rows.get(Lb), np.int32)
         rows = rm[ids]
         if (rows < 0).any():
             seqs, enc, intern = self._tab_seqs, self._enc, pool.intern
@@ -297,6 +373,19 @@ class PairEngine:
                 rm[tid] = intern(seqs[tid], enc)
             rows = rm[ids]
         return rows.astype(np.int32, copy=False)
+
+    def _host_rows_for(self, ids: np.ndarray) -> np.ndarray:
+        """Table ids -> host-pool rows (the CPU route's batch assembly)."""
+        rm = self._tab_host_rows = self._grown_rowmap(self._tab_host_rows,
+                                                      np.int64)
+        rows = rm[ids]
+        if (rows < 0).any():
+            seqs, enc, intern = self._tab_seqs, self._enc, \
+                self._host_pool.intern
+            for tid in np.unique(ids[rows < 0]).tolist():
+                rm[tid] = intern(seqs[tid], enc)
+            rows = rm[ids]
+        return rows
 
     def _rows(self, pool, Lb, pairs, idxs, _idx):
         if _idx is not None:
@@ -374,9 +463,14 @@ class PairEngine:
             ej_out[i] = 0 if hw_mode else int(lb[i])
             if hw_mode and la[i] == 0:
                 ed_out[i] = 0       # an empty query fits an empty span
+        rest = np.flatnonzero(~(diff_skip | empty))
+        if self.native_cpu and rest.size:
+            self._ed_native(pairs, rest, caps, hw_mode, ed_out, ej_out,
+                            _idx=_idx)
+            self.counters["ed_seconds"] += time.perf_counter() - t_start
+            return ed_out, ej_out
         certifies = myers_certifies_hw if hw_mode else myers_certifies
         floor_of = self._myers_floor_hw if hw_mode else self._myers_floor
-        rest = np.flatnonzero(~(diff_skip | empty))
         Wp = W0
         while rest.size:
             win = _MYERS_WIN.get(Wp)          # None: full-width window
@@ -451,6 +545,29 @@ class PairEngine:
             Wp *= 2
         self.counters["ed_seconds"] += time.perf_counter() - t_start
         return ed_out, ej_out
+
+    def _ed_native(self, pairs, idxs, caps, hw_mode, ed_out, ej_out,
+                   _idx=None):
+        """The CPU route (the JAX engine's ``_ed_native``): NW pairs run
+        the threaded host Myers with each pair's cap (ej = len(b)); HW pairs
+        the host banded traceback from band 64 with their caps (ej = the
+        span's exclusive end where ed >= 0)."""
+        if hw_mode:
+            res = native.hw_traceback_batch([pairs[i] for i in idxs],
+                                            band=64, k_cap=caps[idxs])
+            for i, (d, _s0, e0, _ops) in zip(idxs.tolist(), res):
+                ed_out[i] = d
+                ej_out[i] = e0 + 1 if d >= 0 else 0
+            return
+        if _idx is not None:
+            hp = self._host_pool
+            ra = self._host_rows_for(_idx[0][idxs])
+            rb = self._host_rows_for(_idx[1][idxs])
+            q, qlen, t, tlen = hp.mat[ra], hp.lens[ra], hp.mat[rb], hp.lens[rb]
+        else:
+            q, qlen, t, tlen = self._host_pool.gather(pairs, idxs, self._enc)
+        ed_out[idxs] = native.myers_ed_batch_k(q, qlen, t, tlen, caps[idxs])
+        ej_out[idxs] = tlen
 
     @staticmethod
     def _myers_floor(n: np.ndarray, m: np.ndarray, win: int) -> np.ndarray:
@@ -539,8 +656,12 @@ class PairEngine:
         todo = np.flatnonzero(~hostm)
         bands = band_arr.copy()
         lmax = np.maximum(la, lb)
+        nm = la + lb
         while todo.size:
-            next_round = []
+            # every chunk of the round is launched, then the chunks are
+            # collected in launch order: the host decodes one while the
+            # card runs the ones after it
+            launched = []
             Lb_arr = _pool_widths(lmax[todo])
             keys = sorted(set(zip(Lb_arr.tolist(), bands[todo].tolist())))
             for Lb, Wp in keys:
@@ -556,21 +677,26 @@ class PairEngine:
                     csc = sc[chunk]
                     vecs = (ia_all[s: s + bchunk], ib_all[s: s + bchunk],
                             csc[:, 0], csc[:, 1], csc[:, 2], csc[:, 3])
-                    _best, ei, ej, ops, fi, fj, ov = \
-                        self.sharder.sg_align_pool(mat, plen, *vecs, Wp=Wp)
-                    for pos, i in enumerate(chunk.tolist()):
-                        if ov[pos]:
-                            self.counters["align_overflows"] += 1
-                            bands[i] = Wp * 2
-                            if bands[i] > 4 * Lb + 512:
-                                a, b = pairs[i]
-                                raise BandOverflow((a[:30], b[:30], Wp))
-                            next_round.append(i)
-                            continue
-                        a, b = pairs[i]
-                        out[i] = ops_to_alignment_counts(
-                            ops[pos], a, b, int(ei[pos]), int(ej[pos]),
-                            int(fi[pos]), int(fj[pos]))
+                    batch = self.sharder.launch(
+                        sg_align_pool, (mat, plen), vecs, to_host=fetch,
+                        Wp=Wp, nm_max=int(nm[chunk].max()))
+                    launched.append((chunk, batch, Lb, Wp))
+            next_round = []
+            for chunk, batch, Lb, Wp in launched:
+                _best, ei, ej, ops, fi, fj, ov = self.sharder.collect(batch)
+                for pos, i in enumerate(chunk.tolist()):
+                    if ov[pos]:
+                        self.counters["align_overflows"] += 1
+                        bands[i] = Wp * 2
+                        if bands[i] > 4 * Lb + 512:
+                            a, b = pairs[i]
+                            raise BandOverflow((a[:30], b[:30], Wp))
+                        next_round.append(i)
+                        continue
+                    a, b = pairs[i]
+                    out[i] = ops_to_alignment_counts(
+                        ops[pos], a, b, int(ei[pos]), int(ej[pos]),
+                        int(fi[pos]), int(fj[pos]))
             todo = np.asarray(next_round, dtype=np.int64)
         self.counters["align_seconds"] += time.perf_counter() - t_start
         return out

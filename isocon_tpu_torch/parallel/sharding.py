@@ -56,6 +56,17 @@ def _pad_width(x: np.ndarray, width: int) -> np.ndarray:
     return out
 
 
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``arr`` on ``device`` without waiting for the stream: on a card it
+    is copied into pinned host memory and sent with ``non_blocking``.
+    ``arr`` may be rewritten at once; PyTorch's pinned-memory cache keeps
+    the staging block until the copy has run.  On the CPU it is
+    ``torch.from_numpy(arr)``."""
+    if device.type != "cuda":
+        return torch.from_numpy(arr).to(device)
+    return torch.from_numpy(arr).pin_memory().to(device, non_blocking=True)
+
+
 class _Batch:
     """A sharded batch in flight: its size, each owned block's device
     outputs, and the function that reads one block's outputs to host
@@ -103,9 +114,11 @@ class Sharder:
     device is the engine's unsharded path: one block, no padding, the
     pool used in place.
 
-    ``launch`` starts a batch on every owned block and returns at once;
-    ``collect`` reads it to the host.  The engine launches all of a
-    round's batches before it collects any.
+    ``launch`` starts a batch on every owned block and returns at once:
+    its index and score vectors go up from pinned host memory without
+    waiting for the stream; ``collect`` reads it to the host.  The engine
+    launches all of a round's batches before it collects any, and
+    collects them in launch order.
     """
 
     def __init__(self, devices: Sequence):
@@ -170,7 +183,7 @@ class Sharder:
             dev = self.devices[k]
             sl = slice(k * blk, (k + 1) * blk)
             blocks.append(fn(*self._replica(tensors, dev), *[
-                torch.from_numpy(v[sl]).to(dev) for v in padded], **kw))
+                upload(v[sl], dev) for v in padded], **kw))
         return _Batch(B, blocks, to_host)
 
     def collect(self, batch: _Batch) -> Tuple[np.ndarray, ...]:

@@ -25,6 +25,16 @@ from isocon_tpu_torch.io import read_fasta
 from isocon_tpu_torch.ops.engine import PairEngine
 from isocon_tpu_torch.params import Params
 from isocon_tpu_torch.pipeline.candidates import find_candidate_transcripts
+from test_torch_native import plain_port_routes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_port_routes():
+    """The port's engines in this file keep the plain K1/K2/K5 on the CPU
+    (``ISOCON_NO_NATIVE=1``); ``tests/test_torch_native.py`` holds the
+    host route."""
+    with plain_port_routes():
+        yield
 
 
 def rand_seq(rng, n):

@@ -25,6 +25,14 @@ from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
 
 pytestmark = pytest.mark.cuda
 
+
+@pytest.fixture(autouse=True)
+def _plain_cpu_engines(monkeypatch):
+    """CPU engines here keep the plain K1/K2/K5 (``ISOCON_NO_NATIVE=1``),
+    which the card's kernels are held to; a card engine never takes the
+    host route."""
+    monkeypatch.setenv("ISOCON_NO_NATIVE", "1")
+
 _ALPHA = np.array([0, 1, 2, 3, 5], np.int8)
 
 
@@ -1097,3 +1105,54 @@ def test_sketch_topn_rejects_bad_inputs():
         tsk.merge_topn(vals[:, :2], idx[:, :2], 3)
     with pytest.raises(TypeError):
         tsk.merge_topn(vals[:, :2].double(), idx[:, :2], 4)
+
+
+def test_engine_on_card_launches_before_collecting(monkeypatch):
+    """A card engine never takes the host route, even with
+    ``ISOCON_NO_NATIVE`` unset.  Its launch-first loops give the same
+    distances and alignments, with the same kernel launches, as an engine
+    that collects each batch at its launch.  A launch queues its uploads
+    without waiting for the stream, and the host vectors may be rewritten
+    as soon as it returns."""
+    from isocon_tpu_torch.parallel import Sharder
+
+    class Eager(Sharder):
+        def launch(self, fn, tensors, vectors, **kw):
+            return super().collect(super().launch(fn, tensors, vectors,
+                                                  **kw))
+
+        def collect(self, result):
+            return result
+
+    dev = _card()
+    monkeypatch.delenv("ISOCON_NO_NATIVE", raising=False)
+    rng = random.Random(12)
+    seqs = ["".join(rng.choice("ACGT") for _ in range(rng.randrange(200, 1500)))
+            for _ in range(40)]
+    pairs = [(a, b) for a in seqs for b in seqs]
+    scores = [(2, -2, 2, 1)] * len(pairs)
+    gpu = PairEngine(device="cuda")
+    assert not gpu.native_cpu
+    got = []
+    for eng in (gpu, PairEngine(device="cuda", sharder=Eager([dev]))):
+        before = dict(_build.LAUNCHES)
+        got.append((eng.edit_distances(pairs, np.full(len(pairs), 300)),
+                    eng.edit_distances(pairs, hw_mode=True),
+                    eng.align_pairs(pairs[::5], scores[::5]),
+                    {k: _build.LAUNCHES[k] - before[k] for k in before}))
+    for a, b in zip(got[0][:2], got[1][:2]):
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1][a[0] >= 0], b[1][a[0] >= 0])
+    assert got[0][2] == got[1][2] and got[0][3] == got[1][3]
+    pool = torch.zeros((4, 256), dtype=torch.uint8, device=dev)
+    plen = torch.ones(4, dtype=torch.int32, device=dev)
+    ia = np.arange(5, dtype=np.int32)
+    ib = ia.copy()
+    torch.cuda._sleep(500_000_000)      # the uploads queue behind it
+    batch = gpu.sharder.launch(lambda p, l, a, b: (a + b,), (pool, plen),
+                               (ia, ib))
+    assert not torch.cuda.current_stream(dev).query()
+    ia[:] = 99
+    ib[:] = 99
+    np.testing.assert_array_equal(gpu.sharder.collect(batch)[0],
+                                  2 * np.arange(5))

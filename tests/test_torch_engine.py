@@ -15,6 +15,16 @@ from isocon_tpu_torch.ops import oracle
 from isocon_tpu_torch.ops.encode import encode_seq
 from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
 from isocon_tpu_torch.ops.myers import peq_table
+from test_torch_native import plain_port_routes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_port_routes():
+    """The port's engines in this file keep the plain K1/K2/K5 on the CPU
+    (``ISOCON_NO_NATIVE=1``); ``tests/test_torch_native.py`` holds the
+    host route."""
+    with plain_port_routes():
+        yield
 
 
 def _rs(rng, n):

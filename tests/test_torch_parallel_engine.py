@@ -30,6 +30,16 @@ from isocon_tpu_torch.parallel import Sharder, dryrun, make_mesh
 from isocon_tpu_torch.parallel.sharding import (nn_round_sharded,
                                                 nn_round_sharded_2d)
 from test_sharding import _noisy_copy, mutate, rand_seq
+from test_torch_native import plain_port_routes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_port_routes():
+    """The port's engines in this file keep the plain K1/K2/K5 on the CPU
+    (``ISOCON_NO_NATIVE=1``); ``tests/test_torch_native.py`` holds the
+    host route."""
+    with plain_port_routes():
+        yield
 
 
 def _cpu_mesh(n):

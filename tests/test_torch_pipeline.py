@@ -1,5 +1,6 @@
 """The slice as a whole: the port's ``pipeline`` and ``stat_filter``
-subcommands (plain kernels on the CPU) vs the JAX package's on the same
+subcommands (plain kernels on the CPU, and once the CLI's default CPU
+route, the host C++ edit distances) vs the JAX package's on the same
 reads.
 
 Four isoforms (a base, a 3-SNV haplotype, a 1-SNV haplotype with few reads
@@ -22,7 +23,18 @@ from isocon_tpu import cli as jax_cli
 from isocon_tpu_torch import cli as port_cli
 from isocon_tpu_torch.io.bam import read_ccs_bam, write_bam
 from isocon_tpu_torch.io.ccs import reverse_complement
+from isocon_tpu_torch.ops.engine import PairEngine
 from test_torch_candidates import noisy_copy, rand_seq
+from test_torch_native import plain_port_routes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_port_routes():
+    """The port's engines in this file keep the plain K1/K2/K5 on the CPU
+    (``ISOCON_NO_NATIVE=1``); ``tests/test_torch_native.py`` holds the
+    host route."""
+    with plain_port_routes():
+        yield
 
 COMPARED = ("final_candidates.fa", "cluster_info.tsv",
             "candidates_converged.fa", "p_values_*.tsv",
@@ -179,6 +191,39 @@ def test_pipeline_byte_identical_on_the_long_bucket_route(inputs, runs,
         "ed_pairs_wavefront"]
     assert engine.counters["ed_pairs_full_window"] == 0
     assert {mode for mode, _wp in engine.wavefront_rungs} == {"NW", "HW"}
+
+
+def test_pipeline_byte_identical_on_the_native_route(inputs, runs,
+                                                     monkeypatch):
+    """The CLI's default CPU run, unpinned: its engine takes the host C++
+    route for every edit distance (``native_cpu``), as its users get it,
+    and the outputs stay byte-identical to the JAX package's
+    ``--devices 1`` run, with the same ED and alignment volume."""
+    from isocon_tpu_torch import native
+
+    monkeypatch.setattr(PairEngine, "__init__",
+                        PairEngine.__init__.__wrapped__)
+    monkeypatch.delenv("ISOCON_NO_NATIVE", raising=False)
+    host_calls = []
+    myers_ed_batch_k = native.myers_ed_batch_k
+
+    def counted(*args):
+        host_calls.append(len(args[0]))
+        return myers_ed_batch_k(*args)
+
+    monkeypatch.setattr(native, "myers_ed_batch_k", counted)
+    out_j, _out_t, jax_engine, _engine, _phase1 = runs("fasta")
+    out_n = os.path.join(inputs["dir"], "fasta_torch_native")
+    engine, _phase1 = port_cli.main(
+        ["pipeline", "-fl_reads", inputs["fasta"][0], "-outfolder", out_n,
+         "--device", "cpu"])
+    assert engine.native_cpu and jax_engine.native_cpu
+    assert sum(host_calls) > 0
+    _assert_same_files(out_n, out_j)
+    for key in VOLUME:
+        assert engine.counters[key] == jax_engine.counters[key], key
+    assert engine.counters["ed_pairs_full_window"] == 0
+    assert engine.counters["hw_survivors"] > 0
 
 
 def test_ccs_bam_changes_the_p_values(runs):

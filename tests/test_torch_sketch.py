@@ -32,6 +32,16 @@ from isocon_tpu_torch.ops import sketch as ops_sketch
 from isocon_tpu_torch.ops.engine import PairEngine
 from isocon_tpu_torch.workload import make_family, noisy_copy, write_reads
 from test_sketch import mutate, rand_seq
+from test_torch_native import plain_port_routes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_port_routes():
+    """The port's engines in this file keep the plain K1/K2/K5 on the CPU
+    (``ISOCON_NO_NATIVE=1``); ``tests/test_torch_native.py`` holds the
+    host route."""
+    with plain_port_routes():
+        yield
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -28,6 +28,16 @@ from isocon_tpu_torch.pipeline.alignments import align_pair_list
 from isocon_tpu_torch.stats import raghavan
 from isocon_tpu_torch.stats.test import do_statistical_tests_per_edge
 from test_torch_candidates import _recording, noisy_copy, rand_seq
+from test_torch_native import plain_port_routes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_port_routes():
+    """The port's engines in this file keep the plain K1/K2/K5 on the CPU
+    (``ISOCON_NO_NATIVE=1``); ``tests/test_torch_native.py`` holds the
+    host route."""
+    with plain_port_routes():
+        yield
 
 
 @pytest.fixture(scope="module")
