@@ -35,7 +35,9 @@ On one NVIDIA GPU (sm_90a) this script
    seeded profiles with exact ties and on the first round's real profiles
    of the nontargeted workload; in the timing phase once more at the
    timed shapes:
-   K1 and K2 on the engine's chunk of 262,144 pairs at win 7, K5 on the
+   K1 and K2 on the engine's chunk of 262,144 pairs at win 7, K2 on the
+   10k run's own launches (the static graph of its phase-1 candidates,
+   ``time_static_graph``), K5 on the
    engine's chunk of 16,384 pairs at bands 128 and 256, K3 + K4
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
    shape (band 512, L = 32,768) on a slice of the timed batch, K3/K4 at
@@ -58,7 +60,8 @@ On one NVIDIA GPU (sm_90a) this script
    ``final_candidates.fa`` and ``cluster_info.tsv`` to the sha256 the JAX
    package gives on the CPU, and the engine's ED and alignment volume at
    the end of each phase and the number of survivors of the HW prefilter
-   to the JAX package's (``isocon_tpu_torch/smoke_expect.json``); then the
+   to the JAX package's (``isocon_tpu_torch/smoke_expect.json``), and keeps
+   its ``candidates_converged.fa`` for the static graph's K2 step; then the
    same for the long-read workload (500 reads of 16.5-20 kb, every pair
    in the 32,768-wide bucket, where the edit distances run K5), against
    the ``"long"`` block of the same file; then ``pipeline --nontargeted``
@@ -69,7 +72,11 @@ On one NVIDIA GPU (sm_90a) this script
    exceeds ``PEAK_BYTES`` by more than 2%;
 5. times each kernel and its plain version with CUDA events at the main
    path's shapes and computes each kernel's bound (``bound_ms``; K4's is
-   also bounded by the chain of its longest walk); also K5 at band 256,
+   also bounded by the chain of its longest walk); K2 on the 262,144-pair
+   chunk and on each launch of the 10k run's static graph, whose sum the
+   ``kernels`` line gives (at most ``STATIC_GRAPH_SECONDS`` for the step),
+   each with its columns, ``warp_balance`` and the share of warp phases in
+   which its vote fires; also K5 at band 256,
    K3/K4 at the long run's shape and K3/K4 at the runs' mean launch sizes
    (917 pairs at band 256, L = 2048; 119 at band 512, L = 32,768), without
    timing their plain versions; K6 at N = 10,000 (the nontargeted run's
@@ -303,6 +310,105 @@ def hw_pairs(np, B, L, seed=3):
         t[b, :m] = tgt
         ql[b] = a.size
         tl[b] = m
+    return q, t, ql, tl
+
+
+HW_WARP_KINDS = ("query", "mixed", "longq", "short", "early", "edges")
+
+
+def hw_warp_pairs(np, L, kinds=HW_WARP_KINDS, seed=8, tail=5):
+    """K2 pairs (query, target) in warps of 32 consecutive lanes, one warp
+    of each kind in ``kinds``, then ``tail`` lanes of a one-query warp (a
+    ragged last warp):
+    - "query": one query of 2L/3 to L - 20 codes against targets within 40
+      codes of its length, noisy copies cut or extended at the ends, one in
+      eight unrelated: the static graph's warps, whose lanes walk in the
+      same phases;
+    - "mixed": lengths drawn apart, as ``hw_pairs``' warps: substrings of
+      the target, noisy copies, unrelated pairs;
+    - "longq": every other lane a query 129 or more codes longer than its
+      target (the anchor would be read after column m), the others mixed;
+    - "short": queries of 1-32 codes against targets of 0 and 1 codes (the
+      first 8 lanes) or up to L;
+    - "early": one lane of n = m = L, the others ending in the first
+      phases (queries of 1-32 codes, or targets of at most 64);
+    - "edges": lengths 0, 1 and L on either side.
+    Rows are padded with code 6 past their length, but every fourth row
+    with codes that would match there.  Returns (q, t, ql, tl) as uint8
+    [B, L] planes and int32 lengths."""
+    rs = np.random.default_rng(seed)
+    alpha = np.array([0, 1, 2, 3, 5], np.uint8)
+    rand = lambda k: rs.choice(alpha, size=k, p=[.24, .24, .24, .24, .04])
+    edges = [(0, 0), (0, 1), (1, 0), (1, 1), (0, L), (L, 0), (1, L),
+             (L, 1), (L, L), (L, L - 1), (L - 1, L), (32, 0), (33, 1)]
+
+    def mixed(i):
+        m = int(rs.integers(1, L + 1))
+        tgt = rand(m)
+        lo, hi = sorted(int(x) for x in rs.integers(0, m, 2))
+        mode = i % 4
+        if mode == 0:
+            return tgt[lo:hi + 1], tgt
+        if mode == 1:
+            return _mutate(rs, np, tgt[lo:hi + 1], 0.05, alpha), tgt
+        if mode == 2:
+            return _mutate(rs, np, tgt, 0.03, alpha), tgt
+        return rand(int(rs.integers(1, L + 1))), tgt
+
+    def query_warp(lanes):
+        qry = rand(int(rs.integers(2 * L // 3, L - 19)))
+        out = []
+        for i in range(lanes):
+            o = _mutate(rs, np, qry, rs.uniform(0, 0.03), alpha)
+            a, b = (int(x) for x in rs.integers(-20, 21, 2))
+            o = np.concatenate([rand(max(-a, 0)), o[max(a, 0):]])
+            o = np.concatenate([o[:o.size - max(b, 0)], rand(max(-b, 0))])
+            if i % 8 == 7:
+                o = rand(o.size)
+            out.append((qry, o))
+        return out
+
+    lanes = []
+    for kind in kinds:
+        if kind == "query":
+            lanes += query_warp(32)
+            continue
+        for i in range(32):
+            if kind == "mixed" or (kind == "longq" and i % 2):
+                a, o = mixed(i)
+            elif kind == "longq":
+                o = rand(int(rs.integers(1, L - 129)))
+                n = int(rs.integers(o.size + 129, L + 1))
+                a = np.concatenate([_mutate(rs, np, o, 0.02, alpha),
+                                    rand(n)])[:n]
+            elif kind == "short":
+                o = rand(i % 2 if i < 8 else int(rs.integers(0, L + 1)))
+                a = rand(int(rs.integers(1, 33)))
+            elif kind == "early" and i == 0:    # substitutions only
+                o = rand(L)
+                a = np.where(rs.random(L) < 0.02, rand(L), o)
+            elif kind == "early":
+                o = rand(int(rs.integers(1, 65 if i % 2 else L + 1)))
+                a = rand(int(rs.integers(1, 65 if i % 2 else 33)))
+            else:
+                n, m = edges[i] if i < len(edges) else \
+                    (int(x) for x in rs.choice([0, 1, L - 1, L], 2))
+                o = rand(m)
+                a = np.concatenate([o, rand(n)])[:n]
+            lanes.append((a[:L], o[:L]))
+    if tail:
+        lanes += query_warp(tail)
+    B = len(lanes)
+    q = np.full((B, L), 6, np.uint8)
+    t = np.full((B, L), 6, np.uint8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    for b, (a, o) in enumerate(lanes):
+        q[b, :a.size], t[b, :o.size] = a, o
+        if b % 4 == 1:
+            q[b, a.size:] = rs.integers(0, 4, size=L - a.size)
+            t[b, o.size:] = rs.integers(0, 4, size=L - o.size)
+        ql[b], tl[b] = a.size, o.size
     return q, t, ql, tl
 
 
@@ -1140,6 +1246,9 @@ VOLUME = ("ed_pairs", "ed_calls", "align_pairs", "align_calls")
 PEAK_BYTES = {"10k": 3701106176, "long": 4961243136,
               "nontargeted": 4109443584}
 PEAK_SLACK = 0.02
+# the unsharded 10k run's candidates_converged.fa, kept in the build
+# directory for ``time_static_graph``
+CANDIDATES_10K = "candidates_converged_10k.fa"
 
 
 def phase_main_path(torch, _build, dev, long_reads=False,
@@ -1173,6 +1282,7 @@ def phase_main_path(torch, _build, dev, long_reads=False,
         needed = ("myers_ed", "myers_hw", "affine_fwd", "affine_walk")
     if mesh is not None:
         label += " on %d shards" % len(mesh)
+    cell_10k = not (long_reads or nontargeted or mesh is not None)
     n_reads = expect["n_reads"]
     work = os.path.join(_build.BUILD_DIR, "smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1317,6 +1427,9 @@ def phase_main_path(torch, _build, dev, long_reads=False,
             and any(mode == "HW" for mode, _wp in engine.wavefront_rungs)):
         raise AssertionError("long-read pipeline: the wavefront did not run "
                              "in both phases and both modes")
+    if cell_10k:     # phase 1's candidates, for the static graph's K2 step
+        shutil.copy(os.path.join(out, "candidates_converged.fa"),
+                    os.path.join(_build.BUILD_DIR, CANDIDATES_10K))
     shutil.rmtree(work, ignore_errors=True)
     return launches
 
@@ -1591,20 +1704,56 @@ def myers_batch(torch, np, myers, dev, B, hw=False, L=2048):
 
 def myers_columns(n, m, win, hw, L=2048):
     """The text columns each pair of lengths (n, m) needs of K1 (``hw``:
-    K2) at window ``win`` and padded length L, int64: up to m (K2: max(n,
-    m)), or only up to J* = 32 x (nword + HALF + 1), where row n's word
-    leaves the window, if the window moves below it (nwords - WIN > nword);
-    later columns change nothing."""
+    K2) at window ``win`` and padded length L, int64: up to m (K2: none
+    where m < jlow = max(n - 32 HALF, 1), since no column can then change
+    its answer (n, 0)), or only up to J* = 32 x (nword + HALF + 1), where
+    row n's word leaves the window, if the window moves below it
+    (nwords - WIN > nword); later columns change nothing."""
     import torch
 
     n = n.to(torch.int64)
     m = m.to(torch.int64)
     half, nwords = win // 2, L // 32
     nword = torch.div(n - 1, 32, rounding_mode="floor")
-    last = torch.maximum(n, m) if hw else m
+    last = m
+    if hw:
+        jlow = (n - 32 * half).clamp(min=1)
+        last = torch.where(m < jlow, torch.zeros_like(m), m)
     stop = torch.where(nwords - win > nword, 32 * (nword + half + 1), last)
     return torch.where(nword >= 0, torch.minimum(last, stop),
                        torch.zeros_like(last))
+
+
+def _walk_entry(n, win):
+    """The phase at which row n's word enters K2's window: 0 if nword <
+    WIN, else nword - HALF."""
+    import torch
+
+    nword = torch.div(n.to(torch.int64) - 1, 32, rounding_mode="floor")
+    return torch.where(nword < win, torch.zeros_like(nword),
+                       nword - win // 2)
+
+
+def hw_vote_share(n, m, win, L=2048):
+    """(phases in which K2's warp vote fires, phases its warps run) when
+    each 32 consecutive pairs form a warp: a warp runs until its longest
+    lane's last phase (``myers_columns``), and its vote fires in a phase
+    where a lane still in its sweep has row n's word in the window (from
+    the phase ``_walk_entry`` on)."""
+    import torch
+
+    ph = torch.div(myers_columns(n, m, win, True, L) + 31, 32,
+                   rounding_mode="floor")
+    enter = _walk_entry(n, win)
+    pad = (-ph.numel()) % 32
+    ph = torch.cat([ph, ph.new_zeros(pad)])
+    enter = torch.cat([enter, enter.new_zeros(pad)])
+    p = torch.arange(int(ph.max()) if ph.numel() else 0, device=ph.device)
+    run = p[None, :] < ph[:, None]
+    walks = run & (p[None, :] >= enter[:, None])
+    fired = walks.view(-1, 32, p.numel()).any(dim=1)
+    warp_phases = run.view(-1, 32, p.numel()).any(dim=1)
+    return int(fired.sum()), int(warp_phases.sum())
 
 
 def myers_work(n, m, win, hw, L=2048):
@@ -1613,8 +1762,8 @@ def myers_work(n, m, win, hw, L=2048):
     pipe's lanes that ``bound_ms`` divides by: the larger of the ALU-only
     operations and half of all (ALU-only and either pipe), since the ALU
     and FMA pipes take 128 lanes an SM together.  K2 walks row n on those
-    columns where its word is in the window, from phase max(nword - HALF,
-    0) (from phase 0 if nword < WIN)."""
+    columns where its word is in the window, from the phase
+    ``_walk_entry`` gives."""
     import torch
 
     each = myers_columns(n, m, win, hw, L)
@@ -1622,9 +1771,7 @@ def myers_work(n, m, win, hw, L=2048):
     alu = cols * win * MYERS_ALU_OPS_PER_WORD
     any_pipe = cols * (win * MYERS_ANY_OPS_PER_WORD + MYERS_ANY_OPS_PER_COLUMN)
     if hw:
-        nword = torch.div(n.to(torch.int64) - 1, 32, rounding_mode="floor")
-        enter = torch.where(nword < win, torch.zeros_like(nword),
-                            nword - win // 2)
+        enter = _walk_entry(n, win)
         walked = float((each - 32 * enter).clamp(min=0).sum())
         alu += walked * MYERS_HW_WALK_ALU_OPS_PER_COLUMN
         any_pipe += walked * MYERS_HW_WALK_ANY_OPS_PER_COLUMN
@@ -1661,6 +1808,146 @@ def time_myers(torch, myers, batch, win, hw, reps=5):
     nbytes = pool.numel() + peq.numel() * 4 + B * 4 * 4 + B * (8 if hw else 4)
     return (ms, got, nbytes, myers_work(n, m, win, hw, L),
             "B=%d win=%d" % (B, win))
+
+
+STATIC_GRAPH_SECONDS = 15   # the static graph step's budget
+STATIC_GRAPH_WIN = 7
+
+
+def static_graph_batch(np, candidates_fa):
+    """The K2 pairs of phase 2's static graph (``pipeline/stat_filter.py``
+    -> ``graph/end_invariant.py::ends_ignored_nn_graph``) on the candidates
+    in ``candidates_fa`` (phase 1's ``candidates_converged.fa``), from the
+    port's ``static_graph_pairs`` with the default ignore_ends_len.
+    Returns (codes uint8 [R, W], lens int32 [R], ia int32 [P], ib int32
+    [P]): row i holds the i-th candidate in length order (W: the engine's
+    pool width for the longest), pair k is query row ia[k] in target row
+    ib[k], in the graph's order."""
+    from isocon_tpu_torch.graph.end_invariant import static_graph_pairs
+    from isocon_tpu_torch.io import read_fasta
+    from isocon_tpu_torch.ops.encode import encode_seq
+    from isocon_tpu_torch.ops.engine import _pool_widths
+    from isocon_tpu_torch.params import Params
+
+    cands = {acc: seq for acc, seq in read_fasta(candidates_fa)}
+    ordered, wanted = static_graph_pairs(cands, Params().ignore_ends_len)
+    lens = np.array([len(seq) for seq, _acc in ordered], np.int32)
+    w = np.asarray(wanted, np.int32).reshape(-1, 2)
+    codes = np.full((len(ordered), int(_pool_widths(lens.max()))), 6,
+                    np.uint8)
+    for i, (seq, _acc) in enumerate(ordered):
+        codes[i, :len(seq)] = encode_seq(seq).view(np.uint8)
+    return codes, lens, w[:, 0].copy(), w[:, 1].copy()
+
+
+def write_static_graph(path):
+    """``static_graph_batch`` of the 10k workload's phase-1 candidates, saved
+    to ``path`` (npz, keys codes, lens, ia, ib): runs ``get_candidates`` on
+    the card on the 10,000 reads of ``workload.write_reads`` first."""
+    import numpy as np
+    from isocon_tpu_torch import cli
+    from isocon_tpu_torch.ops import _build
+    from isocon_tpu_torch.workload import write_reads
+
+    work = os.path.join(_build.BUILD_DIR, "static_graph")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    reads = os.path.join(work, "reads.fa")
+    write_reads(reads, N_READS)
+    out = os.path.join(work, "out")
+    run, params = cli.parse(["get_candidates", "-fl_reads", reads,
+                             "-outfolder", out, "--device", "cuda"])
+    run(params)
+    codes, lens, ia, ib = static_graph_batch(
+        np, os.path.join(out, "candidates_converged.fa"))
+    np.savez(path, codes=codes, lens=lens, ia=ia, ib=ib)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def static_graph_launches(torch, np, myers, dev, batch):
+    """``static_graph_batch``'s pairs as the engine launches them: every
+    pair at win 7 (no pair of the graph goes to a wider window: the
+    lengths of a pair differ by at most 40, so an uncertified pair's floor
+    at win 7 is at least 28, above the cap of 25), grouped by pool width
+    (``_pool_widths`` of the longer sequence, narrowest first) and cut into
+    chunks of ``ED_BATCH`` in the graph's order.  Yields ``time_myers``'
+    batches (pool, peq, qrow, trow, n, m) on ``dev``; a group's pool holds
+    every row, cut to its width (rows longer than it are not read)."""
+    from isocon_tpu_torch.ops.engine import ED_BATCH, _pool_widths
+
+    codes, lens, ia, ib = batch
+    widths = _pool_widths(np.maximum(lens[ia], lens[ib]))
+    plen = torch.from_numpy(lens).to(dev)
+    for Lb in np.unique(widths).tolist():
+        pool = torch.from_numpy(np.ascontiguousarray(codes[:, :Lb])).to(dev)
+        peq = myers.peq_table(pool, plen)
+        sel = np.flatnonzero(widths == Lb)
+        for s in range(0, sel.size, ED_BATCH):
+            pick = sel[s:s + ED_BATCH]
+            qrow = torch.from_numpy(ia[pick]).to(dev)
+            trow = torch.from_numpy(ib[pick]).to(dev)
+            yield pool, peq, qrow, trow, plen[qrow.long()], plen[trow.long()]
+
+
+def time_static_graph(torch, np, myers, dev, clock_mhz, launches_run):
+    """K2 on the 10k run's own launches: the static graph of its phase-1
+    candidates (kept by ``phase_main_path``), launched as the engine does
+    (``static_graph_launches``), each launch timed (``time_myers``) and
+    held to ``myers_hw_plain`` on every entry, with its columns
+    (``myers_columns``), ``warp_balance``, the share of a warp's phases in
+    which the vote fires (``hw_vote_share``) and its bound.  Fails if the
+    launches are not the run's ``launches_run`` or the step takes more than
+    ``STATIC_GRAPH_SECONDS``.  Returns the reading over all launches (ms,
+    plain ms, bound summed; bound_by that of the launch with the largest
+    bound) and the max abs error."""
+    from isocon_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    batch = static_graph_batch(np, os.path.join(_build.BUILD_DIR,
+                                                CANDIDATES_10K))
+    win, total, bys = STATIC_GRAPH_WIN, [0.0, 0.0, 0.0], []
+    err = k = 0
+    for k, chunk in enumerate(static_graph_launches(torch, np, myers, dev,
+                                                    batch), 1):
+        ms, got, nbytes, ops, shape = time_myers(torch, myers, chunk, win,
+                                                 True)
+        pool, peq, qrow, trow, n, m = chunk
+        plain_ms, want = _time(torch, lambda: myers.myers_hw_plain(
+            peq[qrow.long()], pool[trow.long()], n, m, L=pool.shape[1],
+            win=win), 1)
+        err = max(err, check_equal("myers_hw static graph " + shape,
+                                   list(got), list(want)))
+        bms, by = bound_ms(nbytes, ops, clock_mhz)
+        cols = myers_columns(n, m, win, True, pool.shape[1])
+        fired, phases = hw_vote_share(n, m, win, pool.shape[1])
+        log("myers_hw static graph launch %d: %s L=%d, %d columns, "
+            "warp_balance %.4f, vote fires in %d of %d warp phases (%.4f); "
+            "kernel %.3f ms, plain %.1f ms, bound %.3f ms (%s), %.2fx the "
+            "bound; equal to the plain version on every entry"
+            % (k, shape, pool.shape[1], int(cols.sum()), warp_balance(cols),
+               fired, phases, fired / max(phases, 1), ms, plain_ms, bms, by,
+               ms / bms))
+        for i, x in enumerate((ms, plain_ms, bms)):
+            total[i] += x
+        bys.append((bms, by))
+        del chunk, pool, peq, got, want
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log("myers_hw static graph: %d candidates, %d pairs in %d launches "
+        "(the 10k run's: %d); kernel %.3f ms, plain %.1f ms, bound %.3f ms, "
+        "%.2fx the bound; %.1f s (budget %d s)"
+        % (batch[0].shape[0], batch[2].shape[0], k, launches_run, total[0],
+           total[1], total[2], total[0] / total[2], secs,
+           STATIC_GRAPH_SECONDS))
+    if k != launches_run:
+        raise AssertionError("static graph: %d K2 launches, the 10k run "
+                             "made %d" % (k, launches_run))
+    if secs > STATIC_GRAPH_SECONDS:
+        raise AssertionError("static graph step: %.1f s, over %d s"
+                             % (secs, STATIC_GRAPH_SECONDS))
+    return dict(ms=total[0], plain_ms=total[1], bound_ms=total[2],
+                bound_by=max(bys)[1],
+                shape="10k static graph, %d launches" % k), err
 
 
 def k5_chunk(torch, np, dev):
@@ -1923,8 +2210,12 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
         myers_errs[name] = check_equal(
             "%s %s" % (name, shape), list(got) if hw else [got],
             list(want) if hw else [want])
+        cols = myers_columns(n, m, win, hw, L)
+        vote = ("; vote fires in %d of %d warp phases"
+                % hw_vote_share(n, m, win, L) if hw else "")
         log("%s %s, the timed chunk: equal to the plain version on every "
-            "entry" % (name, shape))
+            "entry; %d columns, warp_balance %.4f%s"
+            % (name, shape, int(cols.sum()), warp_balance(cols), vote))
         del batch, pool, peq, got, want
         torch.cuda.empty_cache()
 
@@ -2200,6 +2491,11 @@ def main() -> None:
                                        wavefront, dev, clock_mhz)
     for kname, err in timing_errs.items():
         errs[kname] = max(errs[kname], err)
+    # K2 at the main path's own launches (the 10k run's static graph): the
+    # kernels line gives these, the log also the 262,144-pair chunk's
+    timing["myers_hw"], err = time_static_graph(
+        torch, np, myers, dev, clock_mhz, launches["myers_hw"])
+    errs["myers_hw"] = max(errs["myers_hw"], err)
     # K6 at round 1's N and at the run's smallest round's (its first 1,102
     # unique reads)
     p, lens = (x.to(dev) for x in real)

@@ -43,7 +43,7 @@
 //   row-n word is picked in the word loop.
 // - Every column does the same loads: codes 0-3 and N (5) index their Peq
 //   slot, code 4 (X) and every code above 5 fall on slot 4, which holds
-//   zeros; HW's columns past m are staged as code 6.  A thread keeps its
+//   zeros.  A thread keeps its
 //   window's 5 x WIN Peq words in its own part of shared memory
 //   ([6][WIN][BLOCK] words) and moves them with the window, loading only
 //   the new bottom word of each plane from the table: each such load is a
@@ -63,20 +63,39 @@
 // K2 (the HW template argument) shares the word step and the phase loop
 // and differs around it: the pair is taken as given (n may exceed m); the
 // window top feeds hin = 0 while it sits at row 0 (free target start) and
-// +1 once it has moved; the sweep runs to column max(n, m), the target
-// reading as a code without a plane past m, because column n carries the
-// anchor D[n][n]; walk sums row n's horizontal deltas over every column
-// where row n's word is in the window, and (wmin, wj) take its strict
-// minimum over jlow <= j <= m with jlow = max(n - margin, 1), so ties keep
-// the smallest end.  The TPU kernel's answer base + wmin - wn is anchor +
-// wmin with anchor = D'[n][j0 - 1] = T + V, read where row n's word enters
-// the window (j0: its first column there), against the delete-whole-query end
-// D[n][0] = n, which wins ties (ej = 0).  K2 walks in every phase (row
-// n's bits picked with per-phase word masks): while row n is below the
-// window its masks are 0, the walk adds 0 and the columns lie before jlow;
-// once row n has left, walk is constant and was already held against wmin,
-// so the lane stops.  At the full width
-// every column of row n is in the window, so jlow = 1 there.
+// +1 once it has moved; walk sums row n's horizontal deltas over the
+// columns where row n's word is in the window, and (wmin, wj) take its
+// strict minimum over jlow <= j <= m with jlow = max(n - margin, 1), so
+// ties keep the smallest end.  The TPU kernel's answer base + wmin - wn is
+// anchor + wmin with anchor = D'[n][j0 - 1] = T + V, read where row n's
+// word enters the window (j0 = 32 pe + 1: pe = 0 if nword < WIN, else
+// nword - HALF), against the delete-whole-query end D[n][0] = n, which wins
+// ties (ej = 0).  At the full width every column of row n is in the
+// window, so jlow = 1 there.
+// Where K2 stops, and why each stop is exact (the TPU kernel and the plain
+// version sweep to max(n, m); column n carried their anchor):
+// - after column max(m, j0 - 1).  Past it the anchor is read and no column
+//   j <= m is left, so wmin and wj cannot change.  max(m, j0 - 1) is m
+//   whenever jlow <= m, since j0 - 1 = 32 pe <= n - 1 - margin < jlow.  If
+//   m < jlow no column can set wmin at all: the answer is (n, 0), whatever
+//   the anchor, and the lane sweeps nothing (last = 0 below).  So the
+//   lane sweeps to m or not at all, and every column it sweeps lies before
+//   m: its text needs no mark past m;
+// - after phase nword + HALF if the window moves below row n: row n's word
+//   has left the window, walk is constant and was already held against
+//   wmin (K1's stop too).
+// Which body a phase runs: row n's bits are picked with per-phase word
+// masks (rm), two masked ORs a window word, and the walk's compare and
+// minimum a column; that body is only needed in the phases where row n's
+// word is in the window (rsel < WIN), WIN of them at most and fewer when
+// the lane stops at m.  While row n is below the window its masks are 0,
+// the walk adds 0 and the columns lie before jlow.  A body chosen per lane
+// would make the warp run each lane's body in turn, so the warp votes: if
+// a lane of the warp needs the walk, all run the walk body (those whose
+// masks are 0 add nothing); otherwise all run K1's body, unrolled twice.
+// The main path's warps (the static graph: runs of pairs that share a
+// query, targets within 40 bases of it) walk in the same few phases and
+// run K1's body in the others.
 #include "isocon_cuda.h"
 
 namespace {
@@ -90,11 +109,9 @@ __device__ __forceinline__ int plane_of(int code) {
 constexpr int kWalkBig = 1 << 29;
 
 // Slots of the band kernel's Peq stage: slot = code for codes 0-3 and N (5);
-// slot 4 stays zero and takes X (4), every code above 5 and HW's columns
-// past m (staged as kPastEnd).
+// slot 4 stays zero and takes X (4) and every code above 5.
 constexpr int kSlots = 6;
 constexpr int kZeroSlot = 4;
-constexpr uint32_t kPastEnd = 0x06060606u;
 // Words of a thread's row of staged text codes: 8 and one of padding.
 constexpr int kTextWords = 9;
 
@@ -196,25 +213,13 @@ __device__ __forceinline__ void shift_peq(uint32_t* sq,
   }
 }
 
-// Copy text codes 32 p .. 32 p + 31 into the thread's row; in HW the codes
-// at or past m become kPastEnd's (slot 4, no match).
-template <bool HW>
+// Copy text codes 32 p .. 32 p + 31 into the thread's row.
 __device__ __forceinline__ void stage_text(uint32_t* row,
                                            const uint8_t* __restrict__ text,
-                                           int p, int m) {
+                                           int p) {
   const uint4* src = reinterpret_cast<const uint4*>(text + 32 * p);
   const uint4 a = src[0], b = src[1];
-  uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  if (HW && 32 * p + 32 > m) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int live = m - 32 * p - 4 * i;   // codes of word i before m
-      if (live < 4) {
-        const uint32_t keep = live <= 0 ? 0u : (1u << (8 * live)) - 1u;
-        w[i] = (w[i] & keep) | (kPastEnd & ~keep);
-      }
-    }
-  }
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
   for (int i = 0; i < 8; ++i) row[i] = w[i];
 }
@@ -257,7 +262,8 @@ myers_band_kernel(const uint8_t* __restrict__ pool,
   int top = 0;                 // T: D' on the row above the window
   int anchor = 0, walk = 0, wmin = kWalkBig, wj = 0;   // HW only
   bool entered = false;                                // HW only
-  const int last = HW ? max(n, m) : m;     // last column swept
+  // last column swept (HW: m, or none once m < jlow fixes the answer)
+  const int last = HW ? (m < jlow ? 0 : m) : m;
   // past phase nword + HALF, row n's word has left the window (if the
   // window ever moves below it) and nothing changes
   const int pend =
@@ -279,19 +285,29 @@ myers_band_kernel(const uint8_t* __restrict__ pool,
       mv[WIN - 1] = 0u;
       shift_peq<WIN, BLOCK>(sq, pq, NWp, W0 + WIN - 1);
     }
-    stage_text<HW>(row, text, p, m);
+    stage_text(row, text, p);
     const int ncol = min(32, last - 32 * p);
     // window top: +1, or 0 in HW mode while it sits at row 0 (bit 31 here:
     // word 0's funnel shift carries it in)
     const bool zero_top = HW && W0 == 0;
     const uint32_t hin31 = zero_top ? 0u : 0x80000000u;
+    // HW: row n's slot; rsel >= 0 before pend
+    const int rsel = nword - W0;
+    bool walking = false;
     if (HW) {
-      // row n's slot; rsel >= 0 before pend
-      const int rsel = nword - W0;
       if (rsel < WIN && !entered) {
         anchor = top + rows_to_n<WIN>(pv, mv, rsel, nbit);
         entered = true;
       }
+      // The vote is over __activemask(): the lanes of the warp that reach
+      // it together.  A lane past its pend has left the phase loop (it
+      // waits where the loop ends), so every voter is still in its sweep,
+      // and no lane that has left is named in the mask.  The voting lane
+      // is always among them: a lane with row n's word in the window runs
+      // the walk body whichever other lanes vote with it.
+      walking = __any_sync(__activemask(), rsel < WIN);
+    }
+    if (walking) {
       uint32_t rm[WIN];
 #pragma unroll
       for (int k = 0; k < WIN; ++k) rm[k] = k == rsel ? 1u << nbit : 0u;
@@ -304,7 +320,7 @@ myers_band_kernel(const uint8_t* __restrict__ pool,
             hin31, rm, hp, hm);
         walk += static_cast<int>(hp != 0u) - static_cast<int>(hm != 0u);
         const int j = 32 * p + s + 1;
-        if (j >= jlow && j <= m && walk < wmin) {
+        if (j >= jlow && walk < wmin) {   // j <= m: the sweep ends at m
           wmin = walk;
           wj = j;
         }

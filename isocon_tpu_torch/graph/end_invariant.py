@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import re
 import time
-from typing import Dict, Set
+from typing import Dict, List, Set, Tuple
 
 import numpy as np
 
@@ -129,28 +129,24 @@ def _adjust_hw_distance(
     return ed
 
 
-def ends_ignored_nn_graph(
-    candidates: Dict[str, str], ignore_ends_len: int, engine,
+def static_graph_pairs(
+    candidates: Dict[str, str], ignore_ends_len: int,
     neighbor_search_depth: int | None = None,
-) -> Dict[str, Dict[str, int]]:
-    """Static all-NN candidate graph under ignored ends (``:757-788``).
-
-    Window: length-sorted neighbors with |len diff| <= max_variants +
-    2*ignore_ends_len (``:650-657``); per pair an HW alignment of the
-    shorter-ordered pair (query seq1 vs target seq2 in both directions as
-    encountered), adjusted for ends; edge kept if adjusted ed in
-    [0, max_variants]; graph symmetrized with min (``:763-770``).
-    """
-    max_ed_allowed = MAX_VARIANTS + ignore_ends_len
+) -> Tuple[List[Tuple[str, str]], List[Tuple[int, int]]]:
+    """The static graph's candidates and pairs (``:650-657``, ``:757-762``):
+    ``ordered``, the (seq, acc) of every candidate sorted by length (stable,
+    in the dict's order), and the directed pairs (i, j) of positions in it,
+    in the order the reference computes them: for each i, its neighbours
+    i - 1, i + 1, i - 2, ... while either side's length lies within
+    max_variants + 2 * ignore_ends_len of len i (and for at most
+    ``neighbor_search_depth`` steps).  Query i, target j: the static
+    graph's K2 launches take runs of pairs that share a query."""
     window = MAX_VARIANTS + 2 * ignore_ends_len
     ordered = sorted(
         ((seq, acc) for acc, seq in candidates.items()), key=lambda x: len(x[0])
     )
     lens = [len(s) for s, _ in ordered]
     n = len(ordered)
-    graph: Dict[str, Dict[str, int]] = {acc: {} for acc in candidates}
-
-    # collect candidate pairs (directed, as the reference computes them)
     wanted = []
     for i in range(n):
         j = 1
@@ -171,6 +167,26 @@ def ends_ignored_nn_graph(
             if neighbor_search_depth is not None and steps >= neighbor_search_depth:
                 break
             j += 1
+    return ordered, wanted
+
+
+def ends_ignored_nn_graph(
+    candidates: Dict[str, str], ignore_ends_len: int, engine,
+    neighbor_search_depth: int | None = None,
+) -> Dict[str, Dict[str, int]]:
+    """Static all-NN candidate graph under ignored ends (``:757-788``).
+
+    Window: length-sorted neighbors with |len diff| <= max_variants +
+    2*ignore_ends_len (``:650-657``, ``static_graph_pairs``); per pair an
+    HW alignment of the shorter-ordered pair (query seq1 vs target seq2 in
+    both directions as encountered), adjusted for ends; edge kept if
+    adjusted ed in [0, max_variants]; graph symmetrized with min
+    (``:763-770``).
+    """
+    max_ed_allowed = MAX_VARIANTS + ignore_ends_len
+    ordered, wanted = static_graph_pairs(candidates, ignore_ends_len,
+                                         neighbor_search_depth)
+    graph: Dict[str, Dict[str, int]] = {acc: {} for acc in candidates}
 
     # distance pass: batched HW kernel (K2) with cutoff; the pairs under
     # the cutoff then get a host traceback for the end adjustments

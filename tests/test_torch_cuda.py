@@ -178,6 +178,45 @@ def test_myers_hw_kernel_matches_plain(win):
         assert bool((ej == 0).any())
 
 
+@pytest.mark.parametrize("win", [7, 9, 17, 33])
+def test_myers_hw_kernel_warp_kinds(win):
+    """K2 against its plain version on every entry, at each window, in
+    warps of every kind of ``chip_smoke.hw_warp_pairs`` three times over
+    and a last warp of 5 lanes (B = 32 x 18 + 5): warps of one query whose
+    lanes walk in the same phases, warps of mixed queries, queries longer
+    than their target by more than 128 (no column can set the minimum, the
+    lane sweeps nothing), queries of 1-32 codes against targets of 0 and 1,
+    lengths 0, 1 and L, and lanes that end many phases before the rest of
+    their warp."""
+    import chip_smoke
+
+    dev = _card()
+    Lp = Lk = 2048
+    q, t, ql, tl = chip_smoke.hw_warp_pairs(
+        np, Lp, kinds=chip_smoke.HW_WARP_KINDS * 3, seed=20 + win)
+    B = q.shape[0]
+    assert B % 32 == 5
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), Lp, dev)
+    peq = tm.peq_table(pool, plen)
+    ia = torch.arange(B, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["myers_hw"]
+    ed, ej = tm.myers_hw_pool(pool, plen, peq, ia, ia + B, L=Lk, win=win)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["myers_hw"] == before + 1
+    n, m = plen[ia.long()], plen[(ia + B).long()]
+    wed, wej = tm.myers_hw_plain(peq[ia.long()], pool[(ia + B).long()], n, m,
+                                 L=Lk, win=win)
+    assert torch.equal(ed, wed) and torch.equal(ej, wej)
+    n, m = torch.from_numpy(ql), torch.from_numpy(tl)
+    assert bool(((n == 0) | (m == 0)).any()) and bool((n == Lp).any())
+    assert bool((n > m + 128).any())
+    cols = chip_smoke.myers_columns(n, m, win, True, Lk)
+    assert bool((cols == 0).any()) and chip_smoke.warp_balance(cols) < 0.75
+    fired, phases = chip_smoke.hw_vote_share(n, m, win, Lk)
+    assert 0 < fired < phases
+
+
 def _phase_crossing_pairs(seed, B, L):
     """Pairs whose sweeps end in every kind of phase of the band kernel at
     width L: inside the head phases (<= 96 columns), across head -> steady,
@@ -584,8 +623,9 @@ def test_smoke_myers_work_counts_fused_forms(monkeypatch):
     """Needs no card: K1's operations are the fused word step times the
     window plus the column's Peq slot, over the columns a pair needs: up to
     m, or up to J* = 32 (nword + HALF + 1) where the window moves below row
-    n; K2's over max(n, m) likewise, plus its walk on the columns where row
-    n's word is in the window (from phase nword - HALF once nword >= WIN).
+    n; K2's up to m likewise (none where m < jlow, which fixes its answer),
+    plus its walk on the columns where row n's word is in the window (from
+    phase nword - HALF once nword >= WIN).
     They are counted in ALU lanes: the ALU-only operations, or half of all
     where that is more (the ALU and FMA pipes take 128 lanes together)."""
     import chip_smoke as cs
@@ -599,13 +639,15 @@ def test_smoke_myers_work_counts_fused_forms(monkeypatch):
     assert cs.myers_work(n, m, 7, False) == (130 + 40 + 512) * alu_col
     # the window never moves below row n at L = 448 (nwords 14 - 7 <= 12)
     assert cs.myers_work(n, m, 7, False, L=448) == (130 + 40 + 900) * alu_col
-    # K2 on (query 900, target 400): nword 28, enters at phase 25, sweeps
-    # to 32 * (28 + 4) = 1024 > 900; on (100, 130): in the window from 0
-    q = torch.tensor([900, 100], dtype=torch.int32)
-    t = torch.tensor([400, 130], dtype=torch.int32)
+    # K2 sweeps to m, or nothing where m < jlow = max(n - 32 HALF, 1): on
+    # (query 900, target 400) jlow is 804, so nothing; on (900, 850) to
+    # 850, walking from phase nword - HALF = 25 (nword 28); on (100, 130)
+    # to 130, in the window from phase 0
+    q = torch.tensor([900, 900, 100], dtype=torch.int32)
+    t = torch.tensor([400, 850, 130], dtype=torch.int32)
     walk = cs.MYERS_HW_WALK_ALU_OPS_PER_COLUMN
     assert cs.myers_work(q, t, 7, True) == (
-        (900 + 130) * alu_col + (900 - 32 * 25 + 130) * walk)
+        (850 + 130) * alu_col + (850 - 32 * 25 + 130) * walk)
     # where the operations either pipe takes dominate, half of all counts
     monkeypatch.setattr(cs, "MYERS_ALU_OPS_PER_WORD", 1)
     monkeypatch.setattr(cs, "MYERS_ANY_OPS_PER_WORD", 11)

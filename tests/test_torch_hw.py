@@ -352,6 +352,79 @@ def test_ends_ignored_nn_graph_matches(seed, ignore_ends_len, depth):
     assert port.counters["hw_survivors"] > 0
 
 
+class _RecordingEngine:
+    """Records the static graph's HW edit-distance call and answers every
+    pair with -1 (no survivor)."""
+
+    def __init__(self):
+        self.counters = {"hw_survivors": 0, "hw_traceback_seconds": 0.0}
+        self.seqs, self.calls = [], []
+
+    def add_seqs(self, seqs):
+        self.seqs = list(seqs)
+        return np.arange(len(self.seqs), dtype=np.int32)
+
+    def edit_distances_idx(self, ia, ib, k_cap=None, hw_mode=False):
+        self.calls.append((np.asarray(ia), np.asarray(ib), hw_mode))
+        return (np.full(len(ia), -1, np.int32), np.zeros(len(ia), np.int32))
+
+
+def test_static_graph_pairs_are_the_engines_launch(tmp_path, monkeypatch):
+    """The port's ``static_graph_pairs`` gives the pairs, and the order,
+    that the JAX and the port's ``ends_ignored_nn_graph`` send to the
+    engine's HW edit distances; ``chip_smoke.static_graph_batch`` lays them
+    out as rows of the candidates in length order, and
+    ``chip_smoke.static_graph_launches`` groups them by the engine's pool
+    width and cuts each group at its ``ED_BATCH`` (shrunk here) into
+    launches on that group's pool."""
+    import chip_smoke
+    from isocon_tpu_torch.ops import engine as port_engine
+
+    cands = _graph_candidates(44)
+    rng = random.Random(45)     # lengths 236-276: pools of 256 and 512
+    cands.update(("short_%d_support_3" % i, _rs(rng, 236 + 4 * i))
+                 for i in range(11))
+    jax_rec, port_rec = _RecordingEngine(), _RecordingEngine()
+    jax_ei.ends_ignored_nn_graph(cands, 15, jax_rec)
+    port_ei.ends_ignored_nn_graph(cands, 15, port_rec)
+    ordered, wanted = port_ei.static_graph_pairs(cands, 15)
+    (ia, ib, hw), = jax_rec.calls
+    assert hw and port_rec.calls[0][2]
+    w = np.asarray(wanted)
+    for rec in (jax_rec, port_rec):
+        ria, rib, _hw = rec.calls[0]
+        seqs = [rec.seqs[i] for i in ria], [rec.seqs[i] for i in rib]
+        assert seqs == ([ordered[i][0] for i in w[:, 0]],
+                        [ordered[i][0] for i in w[:, 1]])
+    path = tmp_path / "candidates.fa"
+    path.write_text("".join(">%s\n%s\n" % kv for kv in cands.items()))
+    codes, lens, bia, bib = chip_smoke.static_graph_batch(np, str(path))
+    assert codes.shape == (len(ordered), 512)
+    assert np.array_equal(bia, w[:, 0]) and np.array_equal(bib, w[:, 1])
+    assert ["".join("ACGTXN"[c] for c in codes[i, :lens[i]])
+            for i in range(len(ordered))] == [sq for sq, _a in ordered]
+    monkeypatch.setattr(port_engine, "ED_BATCH", 100)
+    launches = list(chip_smoke.static_graph_launches(
+        torch, np, tm, torch.device("cpu"), (codes, lens, bia, bib)))
+    widths = port_engine._pool_widths(np.maximum(lens[bia], lens[bib]))
+    order = np.concatenate([np.flatnonzero(widths == Lb)
+                            for Lb in np.unique(widths)])
+    assert np.unique(widths).size == 2       # pools of 256 and 512
+    assert [c[2].shape[0] for c in launches] == [
+        min(100, k - s) for Lb in np.unique(widths)
+        for k in [int((widths == Lb).sum())] for s in range(0, k, 100)]
+    got_q = np.concatenate([c[2].numpy() for c in launches])
+    assert np.array_equal(got_q, bia[order])
+    plen = torch.from_numpy(lens)
+    for pool, peq, qrow, trow, n, m in launches:
+        Lb = pool.shape[1]
+        assert torch.equal(peq, tm.peq_table(pool, plen))
+        assert torch.equal(pool, torch.from_numpy(codes[:, :Lb]))
+        assert torch.equal(n, plen[qrow.long()])
+        assert torch.equal(m, plen[trow.long()])
+        assert bool((torch.maximum(n, m) > Lb // 2).all())
+
+
 def test_adjust_hw_distance_matches():
     rng = random.Random(5)
     for _ in range(200):

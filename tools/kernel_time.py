@@ -7,8 +7,15 @@ K1 (``--kernel k1``): on ``chip_smoke.myers_batch``'s pairs (L = 2048) at
 win 7 for 262,144 pairs (the engine's ED chunk and the table's shape),
 153,670 (the 10k run's mean phase-1 launch: 13,830,282 pairs in 90) and
 13,560 (its mean phase-2 launch: 488,165 in 36), and at win 9 for 262,144;
-K2 (``--kernel k2``) at win 7 for 262,144; or, with ``--pairs`` and
-``--win``, those batch sizes at each window.  K5 (``--kernel k5``): at
+K2 (``--kernel k2``) at win 7 for 262,144 and on each launch of the 10k
+run's static graph (``chip_smoke.static_graph_launches``: its phase-1
+candidates' pairs at win 7 in the engine's chunks), with the share of
+warp phases in which K2's vote fires; the static graph's pairs come from
+``--static-graph FILE`` (npz), which this tree's
+``chip_smoke.write_static_graph`` makes first, in a child process, if it
+is missing (``get_candidates`` on the 10k workload, about a minute on the
+card); or, with ``--pairs`` and ``--win``, those batch sizes at each
+window.  K5 (``--kernel k5``): at
 the engine's K5 chunk (``chip_smoke.k5_chunk``: 16,384 pairs of noisy
 16.5-20 kb copies, L = 32,768), NW and HW, for each band asked for
 (``--wp``, default 128 256).  K3 (``--kernel k3``): at the
@@ -54,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +72,18 @@ K3_SHAPES = ((8192, 256, False), (917, 256, False), (512, 512, True),
 # K1's and K2's shapes: (pairs, window)
 K1_SHAPES = ((262144, 7), (153670, 7), (13560, 7), (262144, 9))
 K2_SHAPES = ((262144, 7),)
+
+
+def static_graph(np, path):
+    """``chip_smoke.static_graph_batch`` of the 10k run, from ``path``,
+    made first with this tree's code (a child process) if it is missing."""
+    if not os.path.exists(path):
+        subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.write_static_graph(sys.argv[1])", path],
+            cwd=HERE, env=dict(os.environ, PYTHONHASHSEED="0"), check=True)
+    with np.load(path) as z:
+        return tuple(z[k] for k in ("codes", "lens", "ia", "ib"))
 
 
 def readings(cs, torch, np, dev, args):
@@ -114,6 +134,22 @@ def readings(cs, torch, np, dev, args):
                 n, m, win, hw, _pool.shape[1]))
             yield ("HW" if hw else "NW"), ms, nbytes, ops, 0, \
                 "%s warp_balance=%.4f" % (shape, balance)
+        if hw and not args.pairs:
+            batches.clear()
+            torch.cuda.empty_cache()
+            win = cs.STATIC_GRAPH_WIN
+            for k, chunk in enumerate(cs.static_graph_launches(
+                    torch, np, myers, dev,
+                    static_graph(np, args.static_graph)), 1):
+                ms, _got, nbytes, ops, shape = cs.time_myers(
+                    torch, myers, chunk, win, True)
+                n, m, L = chunk[4], chunk[5], chunk[0].shape[1]
+                cols = cs.myers_columns(n, m, win, True, L)
+                yield "HW", ms, nbytes, ops, 0, (
+                    "static graph launch %d: %s L=%d warp_balance=%.4f vote "
+                    "fires in %d of %d warp phases"
+                    % ((k, shape, L, cs.warp_balance(cols))
+                       + cs.hw_vote_share(n, m, win, L)))
         return
     chunk = cs.k5_chunk(torch, np, dev)
     if args.kernel == "k5":
@@ -168,6 +204,10 @@ def main() -> None:
                     help="K3/K4 with --pairs: the long copies, L = 32,768")
     ap.add_argument("--warps", type=int, nargs="+", default=[0],
                     help="K3's warps a pair (0: by launch size)")
+    ap.add_argument("--static-graph", default=os.path.join(
+        HERE, "isocon_tpu_torch", "_build", "static_graph_10k.npz"),
+                    help="K2: the 10k static graph's pairs (npz), made "
+                    "first if missing")
     ap.add_argument("--segments", type=int, nargs="+",
                     help="K6: also its first pass alone at each segment "
                     "count (this tree's sketch_topn)")
