@@ -118,7 +118,9 @@ def run_pipeline(params):
 
     with maybe_profile(params):
         t0 = time()
-        # the two spans mark the phases in a --profile trace
+        # the two spans mark the phases in a --profile trace; the spans
+        # inside them (isocon_phase1.*, isocon_phase2.*, isocon_engine.*)
+        # are the pipeline's steps and the engine's calls
         with record_function("isocon_phase1"):
             candidate_file, read_partition, to_realign = (
                 find_candidate_transcripts(params.read_file, params, engine))
@@ -156,7 +158,7 @@ def run_get_candidates(params):
     initialize_logger(params)
     params.read_file = params.fl_reads
     engine = make_engine(params)
-    with maybe_profile(params):
+    with maybe_profile(params), record_function("isocon_phase1"):
         find_candidate_transcripts(params.read_file, params, engine)
     logger(engine.stats_line(), params.logfile)
     devlog(params, "phase1 " + engine.stats_line())
@@ -202,7 +204,7 @@ def run_stat_filter(params):
     read_partition = {acc: {} for acc, _ in read_fasta(params.candidates)}
     # phase 2 interns each read + candidate once per realignment round
     engine.reserve_pool_rows(2 * len(set(to_realign.values())))
-    with maybe_profile(params):
+    with maybe_profile(params), record_function("isocon_phase2"):
         stat_filter_candidates(
             params.fl_reads, params.candidates, read_partition, to_realign,
             params, engine,

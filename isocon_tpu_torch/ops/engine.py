@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import native
 from . import oracle
@@ -67,6 +68,10 @@ WAVE_BATCH = 16384        # pairs per K5 launch (one warp a pair at Wp <= 1024)
 ALIGN_BATCH = 8192        # pairs per K3/K4 launch ...
 ALIGN_SCRATCH_BYTES = 16e9  # ... capped by the K3 direction scratch
 PEQ_CHUNK_ROWS = 8192
+
+
+def _nbytes(arrays) -> int:
+    return sum(a.nbytes for a in arrays)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -104,12 +109,15 @@ class _SeqPool:
     the device in one copy per ``tensors()`` call, with their Peq planes
     computed there.  On a card the copy is queued from pinned memory and
     does not wait for the stream.  ``with_peq=False`` (pools the Myers
-    kernels never read) keeps no planes: ``peq`` is an empty tensor."""
+    kernels never read) keeps no planes: ``peq`` is an empty tensor.
+    ``counters``: the engine's, whose ``upload_bytes`` counts the rows and
+    lengths sent."""
 
-    def __init__(self, L: int, device: torch.device, min_rows: int = 0,
-                 with_peq: bool = True):
+    def __init__(self, L: int, device: torch.device, counters: dict,
+                 min_rows: int = 0, with_peq: bool = True):
         self.L = L
         self.device = device
+        self.counters = counters
         self._peq_words = L // 32 if with_peq else 0
         self.rows: dict = {}
         self.n = 1
@@ -159,6 +167,7 @@ class _SeqPool:
                 lens[x] = len(e)
             self.mat[r0:r0 + k] = upload(block, self.device)
             self.lens[r0:r0 + k] = upload(lens, self.device)
+            self.counters["upload_bytes"] += block.nbytes + lens.nbytes
             if self._peq_words:
                 for s in range(r0, r0 + k, PEQ_CHUNK_ROWS):
                     e = min(s + PEQ_CHUNK_ROWS, r0 + k)
@@ -283,6 +292,16 @@ class PairEngine:
             "hw_survivors": 0, "hw_traceback_seconds": 0.0,
             # rows the sketch of --nontargeted scored, and its time
             "sketch_rows": 0, "sketch_seconds": 0.0,
+            # parts of ed_seconds and align_seconds: the host clock around
+            # each batch's collect (the fetch and its wait for the device),
+            # and around each alignment batch's decode loop
+            "ed_wait_seconds": 0.0, "align_wait_seconds": 0.0,
+            "align_decode_seconds": 0.0,
+            # bytes of the host arrays the collects returned, and of the
+            # caller's arrays sent to the device through
+            # ``parallel.sharding.upload`` (pool rows and lengths, index and
+            # score vectors; never the sharder's padding)
+            "fetch_bytes": 0, "upload_bytes": 0,
         }
 
         # (mode, band width) -> pairs the banded wavefront ran there
@@ -321,7 +340,7 @@ class PairEngine:
         pool = self._pools.get(Lb)
         if pool is None:
             pool = self._pools[Lb] = _SeqPool(
-                Lb, self.device, self._pool_reserve,
+                Lb, self.device, self.counters, self._pool_reserve,
                 with_peq=Lb <= MYERS_MAX_L)
         return pool
 
@@ -433,7 +452,14 @@ class PairEngine:
         ed > k_cap[i] (edlib's ``k`` contract).  hw_mode: infix distance
         of a inside b (free target start and end).  Returns (ed int32,
         end_j int32); end_j is len(b) for NW pairs and the exclusive end
-        of the target span in hw_mode (meaningful where ed >= 0)."""
+        of the target span in hw_mode (meaningful where ed >= 0).  The
+        call is the span ``isocon_engine.ed_nw`` (``.ed_hw``) of a
+        profiler trace."""
+        with record_function("isocon_engine.ed_hw" if hw_mode
+                             else "isocon_engine.ed_nw"):
+            return self._edit_distances(pairs, k_cap, hw_mode, lens, _idx)
+
+    def _edit_distances(self, pairs, k_cap, hw_mode, lens, _idx):
         n_pairs = len(pairs)
         ed_out = np.full(n_pairs, -1, dtype=np.int32)
         ej_out = np.zeros(n_pairs, dtype=np.int32)
@@ -499,9 +525,10 @@ class PairEngine:
                         batch = self.sharder.launch(
                             myers_hw_pool if hw_mode else myers_ed_pool,
                             (mat, plen, peq), vecs, L=L, win=win)
+                    self.counters["upload_bytes"] += _nbytes(vecs)
                     launched.append((idxs[sl], batch, wave))
             for chunk, batch, wave in launched:
-                res = self.sharder.collect(batch)
+                res = self._collect(batch, "ed_wait_seconds")
                 if hw_mode or wave:
                     ed, ej = res
                 else:
@@ -606,6 +633,15 @@ class PairEngine:
         return np.where((delta > o_hi) | (delta < o_lo), -1,
                         np.minimum(2 * o_hi - delta, -2 * o_lo + delta))
 
+    def _collect(self, batch, wait_key: str) -> Tuple[np.ndarray, ...]:
+        """``sharder.collect(batch)``, its host seconds added to
+        ``counters[wait_key]`` and its bytes to ``fetch_bytes``."""
+        t0 = time.perf_counter()
+        res = self.sharder.collect(batch)
+        self.counters[wait_key] += time.perf_counter() - t0
+        self.counters["fetch_bytes"] += _nbytes(res)
+        return res
+
     # ------------------------------------------------------------------
     # affine semi-global alignment with traceback
     # ------------------------------------------------------------------
@@ -623,7 +659,12 @@ class PairEngine:
         negative, open/ext positive penalties (parasail convention).
         ed_hint: known edit distance per pair (tightens the initial band).
         Returns (s1_aligned, s2_aligned, (matches, mismatches, indels))
-        per pair."""
+        per pair.  The call is the span ``isocon_engine.align`` of a
+        profiler trace."""
+        with record_function("isocon_engine.align"):
+            return self._align_pairs(pairs, scores, ed_hint, lens, _idx)
+
+    def _align_pairs(self, pairs, scores, ed_hint, lens, _idx):
         n_pairs = len(pairs)
         t_start = time.perf_counter()
         self.counters["align_calls"] += 1
@@ -680,10 +721,13 @@ class PairEngine:
                     batch = self.sharder.launch(
                         sg_align_pool, (mat, plen), vecs, to_host=fetch,
                         Wp=Wp, nm_max=int(nm[chunk].max()))
+                    self.counters["upload_bytes"] += _nbytes(vecs)
                     launched.append((chunk, batch, Lb, Wp))
             next_round = []
             for chunk, batch, Lb, Wp in launched:
-                _best, ei, ej, ops, fi, fj, ov = self.sharder.collect(batch)
+                _best, ei, ej, ops, fi, fj, ov = self._collect(
+                    batch, "align_wait_seconds")
+                t_decode = time.perf_counter()
                 for pos, i in enumerate(chunk.tolist()):
                     if ov[pos]:
                         self.counters["align_overflows"] += 1
@@ -697,6 +741,8 @@ class PairEngine:
                     out[i] = ops_to_alignment_counts(
                         ops[pos], a, b, int(ei[pos]), int(ej[pos]),
                         int(fi[pos]), int(fj[pos]))
+                self.counters["align_decode_seconds"] += (
+                    time.perf_counter() - t_decode)
             todo = np.asarray(next_round, dtype=np.int64)
         self.counters["align_seconds"] += time.perf_counter() - t_start
         return out

@@ -4,12 +4,20 @@ Re-implements ``isocon_get_candidates.py:85-312`` on the batched engine:
 iteratively partition reads around nearest-neighbor centers, align every
 member to its center, majority-correct half the minority positions, until
 the multiset of edit distances converges (identical copies emerge).
+
+Each step of an iteration is a span of a profiler trace, entered once an
+iteration: ``isocon_phase1.nn_graph`` (the NN graph), ``.partition`` (the
+star partition), ``.align`` (the star alignments and their exon filter;
+once more for the final read -> candidate alignments) and ``.correct``
+(MAM correction).
 """
 from __future__ import annotations
 
 import os
 from collections import Counter
 from typing import Dict, Optional, Set, Tuple
+
+from torch.profiler import record_function
 
 from ..graph.end_invariant import collapse_candidates_under_ends_invariant
 from ..graph.nn import nearest_neighbors
@@ -71,29 +79,31 @@ def partition_strings(S: Dict[str, str], params, engine):
             {s: 0 for s in unique_seqs}, True
 
     conv_mask = [degrees[s] > 1 for s in unique_seqs]
-    if getattr(params, "nontargeted", False):
-        # approximate sketch-retrieval path (the reference's dormant minimap
-        # mode, graphs.py:85-149)
-        from ..graph.sketch import approximate_nn_graph
+    with record_function("isocon_phase1.nn_graph"):
+        if getattr(params, "nontargeted", False):
+            # approximate sketch-retrieval path (the reference's dormant
+            # minimap mode, graphs.py:85-149)
+            from ..graph.sketch import approximate_nn_graph
 
-        nn = approximate_nn_graph(unique_seqs, conv_mask, engine)
-    else:
-        nn = nearest_neighbors(
-            unique_seqs, conv_mask, engine,
-            depth=(params.neighbor_search_depth
-                   if params.neighbor_search_depth < 2 ** 31 else None),
-        )
-    edges = [
-        (i, j) for i, d in enumerate(nn) for j in d if not conv_mask[i]
-    ]
-    deg_list = [degrees[s] for s in unique_seqs]
-    M_idx, part_idx = star_partition(unique_seqs, deg_list, edges)
-    partition = {
-        unique_seqs[c]: {unique_seqs[x] for x in members}
-        for c, members in part_idx.items()
-    }
-    M = {unique_seqs[c]: w for c, w in M_idx.items()}
-    edge_seqs = [(unique_seqs[i], unique_seqs[j]) for i, j in edges]
+            nn = approximate_nn_graph(unique_seqs, conv_mask, engine)
+        else:
+            nn = nearest_neighbors(
+                unique_seqs, conv_mask, engine,
+                depth=(params.neighbor_search_depth
+                       if params.neighbor_search_depth < 2 ** 31 else None),
+            )
+    with record_function("isocon_phase1.partition"):
+        edges = [
+            (i, j) for i, d in enumerate(nn) for j in d if not conv_mask[i]
+        ]
+        deg_list = [degrees[s] for s in unique_seqs]
+        M_idx, part_idx = star_partition(unique_seqs, deg_list, edges)
+        partition = {
+            unique_seqs[c]: {unique_seqs[x] for x in members}
+            for c, members in part_idx.items()
+        }
+        M = {unique_seqs[c]: w for c, w in M_idx.items()}
+        edge_seqs = [(unique_seqs[i], unique_seqs[j]) for i, j in edges]
     return edge_seqs, degrees, partition, M, False
 
 
@@ -111,28 +121,30 @@ def get_partition_alignments(
     Returns {m: {s: (edit_dist, m_aln, s_aln, degree)}} where edit_dist =
     mismatches + indels of the semi-global alignment (``:74``).
     """
-    pairs = []
-    keys = []
-    for m in sorted(partition):
-        for s in sorted(partition[m]):
-            pairs.append((m, s))
-            keys.append((m, s))
-    eds, alns = align_pair_list(engine, pairs)
+    with record_function("isocon_phase1.align"):
+        pairs = []
+        keys = []
+        for m in sorted(partition):
+            for s in sorted(partition[m]):
+                pairs.append((m, s))
+                keys.append((m, s))
+        eds, alns = align_pair_list(engine, pairs)
 
-    exact_alignments: Dict[str, Dict[str, tuple]] = {}
-    for (m, s), aln in zip(keys, alns):
-        exact_alignments.setdefault(m, {})[s] = aln
-    filtered = filter_exon_differences(
-        exact_alignments, params.min_exon_diff, params.ignore_ends_len
-    )
-    exon_filtered.update(filtered)
+        exact_alignments: Dict[str, Dict[str, tuple]] = {}
+        for (m, s), aln in zip(keys, alns):
+            exact_alignments.setdefault(m, {})[s] = aln
+        filtered = filter_exon_differences(
+            exact_alignments, params.min_exon_diff, params.ignore_ends_len
+        )
+        exon_filtered.update(filtered)
 
-    partition_alignments: Dict[str, Dict[str, tuple]] = {}
-    for m in M:
-        selfdegree = degrees.get(m, 1)
-        partition_alignments[m] = {m: (0, m, m, selfdegree)}
-        for s, (aln_m, aln_s, (mat, mis, ind)) in exact_alignments.get(m, {}).items():
-            partition_alignments[m][s] = (mis + ind, aln_m, aln_s, 1)
+        partition_alignments: Dict[str, Dict[str, tuple]] = {}
+        for m in M:
+            selfdegree = degrees.get(m, 1)
+            partition_alignments[m] = {m: (0, m, m, selfdegree)}
+            for s, (aln_m, aln_s, (mat, mis, ind)) in (
+                    exact_alignments.get(m, {}).items()):
+                partition_alignments[m][s] = (mis + ind, aln_m, aln_s, 1)
     return partition_alignments
 
 
@@ -181,9 +193,11 @@ def find_candidate_transcripts(read_file: str, params, engine):
         if all(ed == 0 for ed in edit_distances):
             break  # normal convergence
 
-        S_prime, _S_prime_qual = correct_strings(
-            partition_alignments, seq_to_acc, step, verbose=params.verbose
-        )
+        with record_function("isocon_phase1.correct"):
+            S_prime, _S_prime_qual = correct_strings(
+                partition_alignments, seq_to_acc, step,
+                verbose=params.verbose
+            )
         for acc, s_prime in S_prime.items():
             S[acc] = s_prime
 
@@ -282,23 +296,24 @@ def find_candidate_transcripts(read_file: str, params, engine):
         open(os.path.join(params.outfolder, "not_converged.fa"), "w").close()
 
     # final read -> candidate alignments (``:295-311``)
-    pairs = []
-    keys = []
-    for c_acc in sorted(c_acc_to_seq):
-        c_seq = c_acc_to_seq[c_acc]
-        for read_acc in c_seq_to_read_acc[c_seq]:
-            pairs.append((c_seq, original_reads[read_acc]))
-            keys.append((c_acc, read_acc))
-    eds, alns = align_pair_list(engine, pairs)
-    read_partition: Dict[str, Dict[str, tuple]] = {
-        c_acc: {} for c_acc in c_acc_to_seq
-    }
-    for (c_acc, read_acc), aln in zip(keys, alns):
-        read_partition[c_acc][read_acc] = aln
-    filtered_reads = filter_exon_differences(
-        read_partition, params.min_exon_diff, params.ignore_ends_len
-    )
-    for read_acc in filtered_reads:
-        to_realign[read_acc] = original_reads[read_acc]
+    with record_function("isocon_phase1.align"):
+        pairs = []
+        keys = []
+        for c_acc in sorted(c_acc_to_seq):
+            c_seq = c_acc_to_seq[c_acc]
+            for read_acc in c_seq_to_read_acc[c_seq]:
+                pairs.append((c_seq, original_reads[read_acc]))
+                keys.append((c_acc, read_acc))
+        eds, alns = align_pair_list(engine, pairs)
+        read_partition: Dict[str, Dict[str, tuple]] = {
+            c_acc: {} for c_acc in c_acc_to_seq
+        }
+        for (c_acc, read_acc), aln in zip(keys, alns):
+            read_partition[c_acc][read_acc] = aln
+        filtered_reads = filter_exon_differences(
+            read_partition, params.min_exon_diff, params.ignore_ends_len
+        )
+        for read_acc in filtered_reads:
+            to_realign[read_acc] = original_reads[read_acc]
 
     return candidates_file_name, read_partition, to_realign

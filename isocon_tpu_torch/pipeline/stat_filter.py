@@ -6,12 +6,19 @@ nearest surviving higher-context neighbor with the Raghavan bound, removes
 insignificant candidates (queueing their reads for realignment), runs one
 forced global realignment to escape local optima, and finally collapses
 end-invariant candidates.
+
+Its steps are spans of a profiler trace: ``isocon_phase2.static_graph``
+(the candidate graph, once), and in a round ``.assign`` (the 2-set NN
+search, the assignment and the realignments) and ``.tests`` (the
+statistical tests), each entered once a round that runs it.
 """
 from __future__ import annotations
 
 import copy
 import os
 from typing import Dict, Set
+
+from torch.profiler import record_function
 
 from ..alnutils import filter_exon_differences
 from ..graph.end_invariant import (
@@ -108,7 +115,9 @@ def stat_filter_candidates(read_file, candidate_file, read_partition,
         ccs_dict = {}
 
     # static ends-ignored candidate graph (``:203-206``)
-    static_graph = ends_ignored_nn_graph(C, params.ignore_ends_len, engine)
+    with record_function("isocon_phase2.static_graph"):
+        static_graph = ends_ignored_nn_graph(C, params.ignore_ends_len,
+                                             engine)
 
     step = 1
     previous_partition_of_X = copy.deepcopy(read_partition)
@@ -142,31 +151,33 @@ def stat_filter_candidates(read_file, candidate_file, read_partition,
                     for r_acc, r_seq in to_realign.items():
                         fh.write(">{0}\n{1}\n".format(r_acc, r_seq))
             # 2-set NN assignment + alignments (``:278-316``)
-            nn2 = nearest_neighbors_2set(to_realign, C, engine)
-            partition_of_realigned = greedy_bipartite_assignment(
-                {r: list(cs) for r, cs in nn2.items()},
-                sorted({c for cs in nn2.values() for c in cs}),
-            )
-            pairs = []
-            keys = []
-            for c_acc in partition_of_realigned:
-                for read_acc in partition_of_realigned[c_acc]:
-                    pairs.append((C[c_acc], X[read_acc]))
-                    keys.append((c_acc, read_acc))
-            _eds, alns = align_pair_list(engine, pairs)
-            aligned: Dict[str, Dict[str, tuple]] = {}
-            for (c_acc, read_acc), aln in zip(keys, alns):
-                aligned.setdefault(c_acc, {})[read_acc] = aln
-            filter_exon_differences(
-                aligned, params.min_exon_diff, params.ignore_ends_len
-            )
-            for c_acc in aligned:
-                for read_acc in aligned[c_acc]:
-                    read_partition[c_acc][read_acc] = aligned[c_acc][read_acc]
-            for c_acc in list(read_partition.keys()):
-                if len(read_partition[c_acc]) == 0:
-                    del C[c_acc]
-                    del read_partition[c_acc]
+            with record_function("isocon_phase2.assign"):
+                nn2 = nearest_neighbors_2set(to_realign, C, engine)
+                partition_of_realigned = greedy_bipartite_assignment(
+                    {r: list(cs) for r, cs in nn2.items()},
+                    sorted({c for cs in nn2.values() for c in cs}),
+                )
+                pairs = []
+                keys = []
+                for c_acc in partition_of_realigned:
+                    for read_acc in partition_of_realigned[c_acc]:
+                        pairs.append((C[c_acc], X[read_acc]))
+                        keys.append((c_acc, read_acc))
+                _eds, alns = align_pair_list(engine, pairs)
+                aligned: Dict[str, Dict[str, tuple]] = {}
+                for (c_acc, read_acc), aln in zip(keys, alns):
+                    aligned.setdefault(c_acc, {})[read_acc] = aln
+                filter_exon_differences(
+                    aligned, params.min_exon_diff, params.ignore_ends_len
+                )
+                for c_acc in aligned:
+                    for read_acc in aligned[c_acc]:
+                        read_partition[c_acc][read_acc] = (
+                            aligned[c_acc][read_acc])
+                for c_acc in list(read_partition.keys()):
+                    if len(read_partition[c_acc]) == 0:
+                        del C[c_acc]
+                        del read_partition[c_acc]
 
         # per-round test edges: min surviving static-graph distance (``:325-338``)
         nn_graph: Dict[str, Dict[str, int]] = {}
@@ -227,9 +238,10 @@ def stat_filter_candidates(read_file, candidate_file, read_partition,
             params.logfile,
         )
         if nr_tests > 0:
-            new_significance = do_statistical_tests_per_edge(
-                nn_graph, C, read_partition, ccs_dict, params, engine
-            )
+            with record_function("isocon_phase2.tests"):
+                new_significance = do_statistical_tests_per_edge(
+                    nn_graph, C, read_partition, ccs_dict, params, engine
+                )
             for c_acc in new_significance:
                 for t_acc in new_significance[c_acc]:
                     previous_significance_values[c_acc][t_acc] = (

@@ -1,0 +1,12 @@
+"""star_align_host_s: seconds a job of phase 1's star alignments and final
+read -> candidate alignments with their exon filter
+(pipeline/alignments.py, alnutils.py) on the host: the self time of the
+program's span ``isocon_phase1.align``, its duration less the engine's
+calls nested in it (``spans.per_job``); nothing where the program
+records no such span."""
+
+from portbench import spans
+
+
+def read(run):
+    return spans.per_job(run, "isocon_phase1.align")
