@@ -662,12 +662,14 @@ def phase_check_myers_hw(torch, np, myers, oracle, dev, L=2048, B=4096):
 
 
 def phase_check_affine(torch, np, affine, acu, dev, L=2048, B=512):
-    """K3 against ``sg_forward_plain`` and K4 against ``sg_walk_plain`` on
-    every entry: K3's register kernel at every band it takes (256, 512,
-    1024) and its block kernel at 2048, each on pairs of which some
-    overflow the band; the register kernel on all B pairs (one warp a pair)
-    and on the first 2 x SMS and 100 (four warps a pair), held to the plain
-    versions of the same pairs."""
+    """K3 against ``sg_forward_plain`` and K4 against ``sg_walk_plain``
+    and its epilogue against ``sg_rows_plain`` (the aligned rows up to
+    each row's length, their lengths and counts) on every entry: K3's
+    register kernel at every band it takes (256, 512, 1024) and its block
+    kernel at 2048, each on pairs of which some overflow the band; the
+    register kernel on all B pairs (one warp a pair) and on the first
+    2 x SMS and 100 (four warps a pair), held to the plain versions of the
+    same pairs."""
     k = torch.arange(B, device=dev)
     ma = torch.full((B,), 2, dtype=torch.int32, device=dev)
     mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
@@ -685,29 +687,30 @@ def phase_check_affine(torch, np, affine, acu, dev, L=2048, B=512):
         nops = int((n + m).max()) + 1
         pb, pei, pej, pdirs = affine.sg_forward_plain(
             pool[ia], pool[ib], n, m, ma, mi, go, ge, Wp)
-        want = [pb, pei, pej] + list(affine.sg_walk_plain(pdirs, pei, pej, Wp,
-                                                          nops))
+        want = [pb, pei, pej] + plain_walk_rows(
+            affine, pdirs, pei, pej, Wp, nops, (pool, ia, ib, n, m))
         del pdirs
         for Bk in ((B, 2 * SMS, 100) if Wp <= 1024 else (B,)):
             s = slice(0, Bk)
             best, ei, ej, dirs = acu.affine_fwd(pool, ia[s], ib[s], n[s],
                                                 m[s], ma[s], mi[s], go[s],
                                                 ge[s], Wp=Wp)
-            ops, fi, fj, ov = acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+            seqs = (pool, ia[s], ib[s], n[s], m[s])
+            walk = rows_to_length(torch, acu.affine_walk(
+                dirs, ei, ej, Wp=Wp, nops=nops, seqs=seqs))
             torch.cuda.synchronize()
             name = "Wp=%d B=%d" % (Wp, Bk)
             err3 = max(err3, check_equal("K3 " + name, [best, ei, ej],
                                          [x[s] for x in want[:3]]))
-            # the fused result against the plain forward + walk ...
-            check_equal("K3+K4 " + name, [ops, fi, fj, ov],
-                        [x[s] for x in want[3:]])
+            # the fused result against the plain forward + walk + rows ...
+            check_equal("K3+K4 " + name, walk, [x[s] for x in want[3:]])
             if Bk == B:     # ... and K4 on the kernel's own bytes
                 err4 = max(err4, check_equal(
-                    "K4 " + name, [ops, fi, fj, ov],
-                    list(affine.sg_walk_plain(dirs, ei, ej, Wp, nops))))
-            n_ov = int(ov.sum())
-            log("K3+K4 %s L=%d: equal on every entry; %d overflow"
-                % (name, L, n_ov))
+                    "K4 " + name, walk, plain_walk_rows(
+                        affine, dirs, ei, ej, Wp, nops, seqs)))
+            n_ov = int(walk[3].sum())
+            log("K3+K4 %s L=%d: equal on every entry, the rows up to their "
+                "length; %d overflow" % (name, L, n_ov))
             if n_ov == 0:
                 raise AssertionError("K3+K4 check set has no overflow at "
                                      + name)
@@ -1097,7 +1100,10 @@ def routes_engines(torch, np, dev, reads, ia, ib, caps):
             "host %.3f s, card %.3f s; %d under their cap; max abs err %d"
             % ("HW" if hw_mode else "NW", len(ia), secs[(hw_mode, "host")],
                secs[(hw_mode, "card")], int(known.sum()), err))
-    route_only = ("ed_pairs_full_window", "ed_pairs_wavefront")
+    # counters of the card route alone: its windows, and the bytes it
+    # copies to and from the card, which the host route never copies
+    route_only = ("ed_pairs_full_window", "ed_pairs_wavefront",
+                  "fetch_bytes", "upload_bytes")
     for key, value in host.counters.items():
         if (not key.endswith("seconds") and key not in route_only
                 and card.counters[key] != value):
@@ -2037,37 +2043,75 @@ def time_k3(torch, acu, batch, Wp, warps=0):
     return ms, got, nbytes, ops, shape + (" warps=%d" % warps if warps else "")
 
 
-def time_k4(torch, acu, dirs, ei, ej, Wp, nops, shape):
-    """K4 on K3's direction bytes: (kernel ms, the result, bytes, int32
-    operations, chain steps, shape), the ms the mean of 3 calls after a
-    warm-up.  A walk's steps are the opcodes of its row that are not
-    OP_NONE.  Bytes: a direction byte a step and (ei, ej) read, the ops
-    rows and (fi, fj, ov) written; operations: ``WALK_OPS_PER_STEP`` a
-    step; chain: the longest walk's steps (``bound_ms``)."""
-    k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+def rows_to_length(torch, walk):
+    """``affine_walk``'s outputs with the bytes of each aligned row past
+    its length (which the card leaves unwritten) zeroed, as
+    ``sg_rows_plain`` gives them."""
+    ops, fi, fj, ov, a1, a2, alen, nmat, nmis = walk
+    keep = (torch.arange(a1.shape[1], device=a1.device)[None, :]
+            < alen.long()[:, None])
+    return [ops, fi, fj, ov, torch.where(keep, a1, 0),
+            torch.where(keep, a2, 0), alen, nmat, nmis]
+
+
+def plain_walk_rows(affine, dirs, ei, ej, Wp, nops, seqs):
+    """``sg_walk_plain`` and ``sg_rows_plain`` of its walks: the plain
+    version of ``affine_walk``'s nine outputs."""
+    pool, qrow, trow, n, m = seqs
+    walk = list(affine.sg_walk_plain(dirs, ei, ej, Wp, nops))
+    return walk + list(affine.sg_rows_plain(
+        *walk[:1], ei, ej, *walk[1:], pool[qrow.long()], pool[trow.long()],
+        n, m, nops - 1))
+
+
+def time_k4(torch, acu, dirs, ei, ej, Wp, nops, shape, seqs):
+    """K4 on K3's direction bytes, with its epilogue, the aligned rows of
+    ``seqs`` = (pool, qrow, trow, n, m), as the main path launches it:
+    (kernel ms, the result, bytes, int32 operations, chain steps, shape),
+    the ms the mean of 3 calls after a warm-up, the result
+    ``rows_to_length``'s.  ``seqs`` None: a tree whose K4 writes no rows
+    (``kernel_time.py --root``), the walk alone.  A walk's steps are the
+    opcodes of its row that are not OP_NONE.  Bytes: a direction byte a
+    step and (ei, ej) read, the ops rows and (fi, fj, ov) written; the
+    epilogue's: the opcodes read back, the n + m bases, (qrow, trow, n, m)
+    read, both rows' bytes up to their length and (alen, nmat, nmis)
+    written.  Operations: ``WALK_OPS_PER_STEP`` a step; chain: the longest
+    walk's steps (``bound_ms``)."""
+    if seqs is None:
+        k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+    else:
+        k4 = lambda: acu.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops,
+                                     seqs=seqs)
     k4()
     ms, got = _time(torch, k4, 3)
     B = ei.shape[0]
     per_pair = (got[0] != 0).sum(dim=1)
     steps = float(per_pair.to(torch.float64).sum())
     chain = int(per_pair.max()) if B else 0
-    return (ms, got, steps + B * 8 + B * nops + B * 12,
-            steps * WALK_OPS_PER_STEP, chain, shape)
+    nbytes = steps + B * 8 + B * nops + B * 12
+    if seqs is not None:
+        got = rows_to_length(torch, got)
+        n, m = seqs[3], seqs[4]
+        nbytes += (steps + float((n + m).to(torch.float64).sum()) + B * 16
+                   + 2 * float(got[6].to(torch.float64).sum()) + B * 12)
+    return ms, got, nbytes, steps * WALK_OPS_PER_STEP, chain, shape
 
 
 def time_k3_mean_launch(torch, acu, batch, Wp, B, nops, wants, res, name):
     """K3 on the first B pairs of ``batch`` (the run's mean launch size),
-    into ``res[name]``, and K4's walk of its direction bytes, timed into
-    ``res`` under the same name with ``affine_walk`` for ``affine_fwd``.
-    Each of ``wants`` is a (best, ei, ej, ops, fi, fj, ov) of the batch's
-    first k pairs that the launch's first k pairs are held to.  Returns the
-    max abs error of K3 and of K4."""
+    into ``res[name]``, and K4's walk of its direction bytes with the rows,
+    timed into ``res`` under the same name with ``affine_walk`` for
+    ``affine_fwd``.  Each of ``wants`` is a (best, ei, ej, ops, fi, fj, ov,
+    a1, a2, alen, nmat, nmis) of the batch's first k pairs that the
+    launch's first k pairs are held to.  Returns the max abs error of K3
+    and of K4."""
     part = tuple(x[:B] for x in batch[1:])
     ms, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(
         torch, acu, (batch[0],) + part, Wp)
     res[name] = (ms, None, nbytes, ops, shape, 0)
     ms4, walk, nbytes, ops, chain, _ = time_k4(torch, acu, dirs, ei, ej, Wp,
-                                               nops, shape)
+                                               nops, shape,
+                                               (batch[0],) + part[:4])
     res[name.replace("affine_fwd", "affine_walk")] = (ms4, None, nbytes, ops,
                                                       shape, chain)
     got = (best, ei, ej) + tuple(walk)
@@ -2139,27 +2183,27 @@ def time_long_shapes(torch, np, affine, acu, wavefront, dev, res):
                                                             batch, Wp)
     res["affine_fwd (long)"] = (ms3, None, nbytes, ops, shape, 0)
     ms4, walk, nbytes, ops, chain, _ = time_k4(torch, acu, dirs, ei, ej, Wp,
-                                               nops, shape)
+                                               nops, shape, batch[:5])
     res["affine_walk (long)"] = (ms4, None, nbytes, ops, shape, chain)
     del dirs
     torch.cuda.empty_cache()
     # held to the plain versions on the batch's first S pairs: the plain
     # forward and walk cost a step per diagonal (some 37,000 here), not B.
-    # K4's walk of K3's direction bytes is held to the plain forward +
-    # walk, which holds the bytes on the path too (K4 alone on the same
-    # bytes is held at L = 2048, phase_check_affine).
+    # K4's walk and rows of K3's direction bytes are held to the plain
+    # forward + walk + rows, which holds the bytes on the path too (K4 alone
+    # on the same bytes is held at L = 2048, phase_check_affine).
     t0 = time.perf_counter()
     s = slice(0, S)
     pb, pei, pej, pdirs = affine.sg_forward_plain(
         pool[ia[s]], pool[ib[s]], n[s], m[s], ma[s], mi[s], go[s], ge[s], Wp)
-    plain = (pb, pei, pej) + tuple(affine.sg_walk_plain(pdirs, pei, pej, Wp,
-                                                        nops))
+    plain = (pb, pei, pej) + tuple(plain_walk_rows(
+        affine, pdirs, pei, pej, Wp, nops, (pool, ia[s], ib[s], n[s], m[s])))
     del pdirs
     err3 = check_equal("K3 " + shape, [best[s], ei[s], ej[s]], plain[:3])
     err4 = check_equal("K3+K4 " + shape, [x[s] for x in walk], plain[3:])
     log("K3+K4 %s, the first %d pairs of the timed batch: equal to the "
-        "plain versions on every entry (%.1f s)"
-        % (shape, S, time.perf_counter() - t0))
+        "plain versions on every entry, the rows up to their length "
+        "(%.1f s)" % (shape, S, time.perf_counter() - t0))
     # the long run's mean launch, 119 pairs (K3 four warps a pair): its
     # first S pairs held to the same plain results, all 119 to the 512-pair
     # launch (K3 one warp a pair)
@@ -2187,9 +2231,11 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     band 256 on the same chunk, K3/K4 at the long run's shape (band 512 on
     a 512-pair batch of such copies, L = 32,768) and K3/K4 at the runs' mean
     launch sizes (the first 917 pairs of the 8192, the first 119 of the
-    512).  Each reading of K3, K4 and K5 is also held to the plain version:
-    on every entry (K5; K3 and K4's walk of its bytes on the 8192-pair
-    batch and its first 917), or on the first pairs of the batch (K3/K4 at
+    512).  K4 runs with its epilogue, the aligned rows, as the main path
+    launches it.  Each reading of K3, K4 and K5 is also held to the plain
+    version: on every entry (K5; K3 and K4's walk of its bytes and its
+    rows, up to each row's length, on the 8192-pair batch and its first
+    917), or on the first pairs of the batch (K3/K4 at
     the long shape, on 512 and on 119 pairs; all 119 are also held to the
     512-pair launch).  K1 and K2 are held to theirs on every entry of the
     timed chunk.  Returns the readings and the max abs error of each kernel
@@ -2228,25 +2274,25 @@ def phase_timing(torch, np, myers, affine, acu, wavefront, dev, clock_mhz):
     ms3, (best, ei, ej, dirs), nbytes, ops, shape = time_k3(torch, acu,
                                                             batch, Wp)
     res["affine_fwd"] = (ms3, None, nbytes, ops, shape, 0)
-    ms4, (ops4, fi, fj, ov), nbytes, ops, chain, _ = time_k4(
-        torch, acu, dirs, ei, ej, Wp, nops, shape)
+    ms4, walk, nbytes, ops, chain, _ = time_k4(
+        torch, acu, dirs, ei, ej, Wp, nops, shape, batch[:5])
     res["affine_walk"] = (ms4, None, nbytes, ops, shape, chain)
     del dirs
     torch.cuda.empty_cache()
     plain3, (pb, pei, pej, pdirs) = _time(torch, lambda: (
         affine.sg_forward_plain(pool[ia], pool[ib], n, m, ma, mi, go, ge,
                                 Wp)), 1)
-    plain4, pwalk = _time(torch, lambda: affine.sg_walk_plain(
-        pdirs, pei, pej, Wp, nops), 1)
+    plain4, pwalk = _time(torch, lambda: plain_walk_rows(
+        affine, pdirs, pei, pej, Wp, nops, batch[:5]), 1)
     del pdirs
     torch.cuda.empty_cache()
     res["affine_fwd"] = (ms3, plain3) + res["affine_fwd"][2:]
     res["affine_walk"] = (ms4, plain4) + res["affine_walk"][2:]
     err3 = check_equal("K3 " + shape, [best, ei, ej], [pb, pei, pej])
-    err4 = check_equal("K3+K4 " + shape, [ops4, fi, fj, ov], list(pwalk))
+    err4 = check_equal("K3+K4 " + shape, walk, pwalk)
     log("K3+K4 %s, the timed batch: equal to the plain versions on every "
-        "entry" % shape)
-    del ops4
+        "entry, the rows up to their length" % shape)
+    del walk
     # the 10k run's mean launch: 917 pairs, held to the same plain results
     Bm = 917
     e3, e4 = time_k3_mean_launch(

@@ -69,7 +69,8 @@
 // reads.  Parity compaction here is plain index arithmetic, not the TPU's
 // two-pairs-per-plane packing, which is not carried over.  K4: one warp
 // per pair walks the scratch backward over tiles staged in shared memory
-// and writes contiguous opcodes (see the walk kernel).
+// and writes contiguous opcodes, then the aligned rows they spell (see the
+// walk kernel).
 #include "isocon_cuda.h"
 
 namespace {
@@ -677,8 +678,87 @@ int sm_count() {
 // every 128 steps and at the end, 32 consecutive bytes a store
 // instruction.  A persistent grid of four warps a block takes pairs from
 // an atomic counter, so a launch of a few pairs still spreads over the SMs
-// and a short walk does not hold a long one back.
+// and a short walk does not hold a long one back.  The warp then turns the
+// walk into the pair's two aligned rows (aligned_rows, below) before it
+// takes the next pair.
 constexpr int kRing = 128;
+
+// The letter of a base code in the aligned rows (encode.decode_seq's:
+// A C G T N, X for any other code).
+__device__ __forceinline__ int base_letter(int code) {
+  return code < 4 ? (0x54474341u >> (8 * code)) & 0xFF
+                  : (code == 5 ? 'N' : 'X');
+}
+
+// K4's epilogue (plain version: affine.py's sg_rows_plain): the walk's
+// two aligned rows, the bytes ops_to_alignment_counts builds on the host,
+//   a1 = "-" * fj + q[:fi] + mid1 + q[ei:] + "-" * (m - ej)
+//   a2 = t[:fj] + "-" * fi + mid2 + "-" * (n - ei) + t[ej:]
+// with the mid the walk's K steps in forward order, and its matches and
+// mismatches.  The warp covers 32 consecutive positions of the rows at a
+// time, a lane each, and stores them with one instruction a row.  In the
+// mid a lane reads its opcode back from the walk's row (just written: read
+// from L2, past L1), and the query and target positions it consumes come
+// from a prefix count over the lanes below it (ballot and popc) plus those
+// the chunks before consumed.  q, t: the pair's pool rows; the counts
+// return on every lane.
+__device__ __forceinline__ void aligned_rows(
+    const uint8_t* orow, int K, const uint8_t* __restrict__ q,
+    const uint8_t* __restrict__ t, int n, int m, int ei, int ej, int fi,
+    int fj, uint8_t* __restrict__ r1, uint8_t* __restrict__ r2, int lane,
+    int& nmat, int& nmis) {
+  const int p2 = fi + fj, p3 = p2 + K, p4 = p3 + (n - ei);
+  const int A = p4 + (m - ej);
+  const unsigned below = (1u << lane) - 1;
+  int qn = fi, tn = fj;          // the mid's next query / target position
+  int mat = 0, mis = 0;
+  for (int base = 0; base < A; base += kWarp) {
+    const int pos = base + lane;
+    const bool mid = pos >= p2 && pos < p3;
+    // forward step pos - p2 of the mid is the walk's step p3 - 1 - pos
+    const int op = mid ? __ldcg(orow + (p3 - 1 - pos)) : OP_NONE;
+    const bool uq = op == OP_DIAG || op == OP_GAPT;
+    const bool ut = op == OP_DIAG || op == OP_GAPQ;
+    const unsigned bq = __ballot_sync(kFull, uq);
+    const unsigned bt = __ballot_sync(kFull, ut);
+    const int qi = qn + __popc(bq & below);
+    const int ti = tn + __popc(bt & below);
+    qn += __popc(bq);
+    tn += __popc(bt);
+    if (pos < A) {
+      int c1 = '-', c2 = '-';
+      if (pos < fj) {
+        c2 = base_letter(t[pos]);
+      } else if (pos < p2) {
+        c1 = base_letter(q[pos - fj]);
+      } else if (mid) {
+        if (uq) c1 = base_letter(q[qi]);
+        if (ut) c2 = base_letter(t[ti]);
+        if (op == OP_DIAG) {
+          mat += c1 == c2;
+          mis += c1 != c2;
+        }
+      } else if (pos < p4) {
+        c1 = base_letter(q[ei + pos - p3]);
+      } else {
+        c2 = base_letter(t[ej + pos - p4]);
+      }
+      r1[pos] = static_cast<uint8_t>(c1);
+      r2[pos] = static_cast<uint8_t>(c2);
+    }
+  }
+  nmat = __reduce_add_sync(kFull, mat);
+  nmis = __reduce_add_sync(kFull, mis);
+}
+
+// The pairs' sequences and the rows' outputs of the epilogue.
+struct RowArgs {
+  const uint8_t* pool;
+  const int *qrow, *trow, *n, *m;
+  uint8_t *a1, *a2;
+  int *alen, *nmat, *nmis;
+  int Lp;
+};
 
 template <int TD>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
@@ -686,7 +766,8 @@ affine_walk_kernel(const uint8_t* __restrict__ dirs,
                    const int* __restrict__ ei, const int* __restrict__ ej,
                    uint8_t* __restrict__ ops, int* __restrict__ fi_out,
                    int* __restrict__ fj_out, int* __restrict__ ov_out,
-                   int* next_pair, int B, int S, int Wp, int nops) {
+                   int* next_pair, int B, int S, int Wp, int nops,
+                   const RowArgs rows) {
   constexpr int WL = TD + 16;             // lanes of a tile row
   constexpr int CH = WL / 16;             // 16-byte chunks of a tile row
   constexpr int COPIES = TD * CH / kWarp; // chunks a lane copies
@@ -789,10 +870,29 @@ affine_walk_kernel(const uint8_t* __restrict__ dirs,
     const int base = k & ~(kRing - 1);
     for (int s = lane; s < k - base; s += kWarp)
       orow[base + s] = rings[wi][s];
+    // the rows need the whole opcode row: every lane's stores are seen by
+    // the warp after the barrier
+    __syncwarp();
+    int alen = 0, nmat = 0, nmis = 0;
+    if (!ov) {
+      const int n = rows.n[b], m = rows.m[b];
+      const int e_i = ei[b], e_j = ej[b];
+      const size_t w = static_cast<size_t>(nops - 1);
+      // a walk that ended on a boundary cell took a last step of OP_NONE
+      aligned_rows(orow, k - (st == 3),
+                   rows.pool + static_cast<size_t>(rows.qrow[b]) * rows.Lp,
+                   rows.pool + static_cast<size_t>(rows.trow[b]) * rows.Lp,
+                   n, m, e_i, e_j, i, j, rows.a1 + b * w, rows.a2 + b * w,
+                   lane, nmat, nmis);
+      alen = i + j + (k - (st == 3)) + (n - e_i) + (m - e_j);
+    }
     if (lane == 0) {
       fi_out[b] = i;
       fj_out[b] = j;
       ov_out[b] = ov;
+      rows.alen[b] = alen;
+      rows.nmat[b] = nmat;
+      rows.nmis[b] = nmis;
     }
     int nb = 0;
     if (lane == 0) nb = atomicAdd(next_pair, 1) + first_taken;
@@ -803,7 +903,8 @@ affine_walk_kernel(const uint8_t* __restrict__ dirs,
 template <int TD>
 int launch_walk(const uint8_t* dirs, const int* ei, const int* ej,
                 uint8_t* ops, int* fi, int* fj, int* ov, int* counter, int B,
-                int S, int Wp, int nops, cudaStream_t stream) {
+                int S, int Wp, int nops, const RowArgs& rows,
+                cudaStream_t stream) {
   auto kernel = affine_walk_kernel<TD>;
   constexpr int threads = kWarpsPerBlock * kWarp;
   static const int per_sm = [=] {
@@ -819,7 +920,7 @@ int launch_walk(const uint8_t* dirs, const int* ei, const int* ej,
   const int resident = sms * per_sm;
   const int grid = needed < resident ? needed : resident;
   kernel<<<grid, threads, 0, stream>>>(dirs, ei, ej, ops, fi, fj, ov,
-                                       counter, B, S, Wp, nops);
+                                       counter, B, S, Wp, nops, rows);
   return isocon_launch_status();
 }
 
@@ -942,14 +1043,34 @@ ISOCON_API int isocon_affine_fwd(const void* pool, const void* qrow,
 // tile_rows: the rows of a staged tile, 64 (the only size compiled; the
 // wrapper's WALK_TILE_ROWS).  counter: one int32 of device memory, the
 // pair counter of the persistent grid (zeroed here).  dirs must be 16-byte
-// aligned.  Anything else returns cudaErrorInvalidValue.
+// aligned.  The epilogue writes each pair's aligned rows into a1, a2
+// [B, nops - 1] (uint8; the bytes past a row's length are left as they
+// are) and its length, matches and mismatches into alen, nmat, nmis [B]
+// (int32; zeros for a pair whose walk overflowed, whose rows are left as
+// they are), reading the query and target from the pool [R, Lp] at rows
+// qrow, trow with lengths n, m (int32 [B]); nops must exceed max(n + m).
+// Anything else returns cudaErrorInvalidValue.
 ISOCON_API int isocon_affine_walk(const void* dirs, const void* ei,
                                   const void* ej, void* ops, void* fi,
-                                  void* fj, void* ov, void* counter, int B,
+                                  void* fj, void* ov, void* counter,
+                                  const void* pool, const void* qrow,
+                                  const void* trow, const void* n,
+                                  const void* m, void* a1, void* a2,
+                                  void* alen, void* nmat, void* nmis, int B,
                                   int S, int Wp, int nops, int tile_rows,
-                                  void* stream) {
+                                  int Lp, void* stream) {
   if (B <= 0) return 0;
   if (S < 1 || !counter || reinterpret_cast<uintptr_t>(dirs) % 16)
+    return cudaErrorInvalidValue;
+  const RowArgs rows = {
+      static_cast<const uint8_t*>(pool), static_cast<const int*>(qrow),
+      static_cast<const int*>(trow),     static_cast<const int*>(n),
+      static_cast<const int*>(m),        static_cast<uint8_t*>(a1),
+      static_cast<uint8_t*>(a2),         static_cast<int*>(alen),
+      static_cast<int*>(nmat),           static_cast<int*>(nmis),
+      Lp};
+  if (!pool || !qrow || !trow || !n || !m || !a1 || !a2 || !alen || !nmat ||
+      !nmis || Lp < 1 || nops < 1)
     return cudaErrorInvalidValue;
   switch (Wp) {
     case 256: case 512: case 1024: case 2048: case 4096: case 8192: break;
@@ -960,6 +1081,6 @@ ISOCON_API int isocon_affine_walk(const void* dirs, const void* ei,
       static_cast<const uint8_t*>(dirs), static_cast<const int*>(ei),
       static_cast<const int*>(ej), static_cast<uint8_t*>(ops),
       static_cast<int*>(fi), static_cast<int*>(fj), static_cast<int*>(ov),
-      static_cast<int*>(counter), B, S, Wp, nops,
+      static_cast<int*>(counter), B, S, Wp, nops, rows,
       static_cast<cudaStream_t>(stream));
 }

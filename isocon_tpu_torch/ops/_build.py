@@ -38,7 +38,7 @@ _SIGNATURES = {
     "isocon_myers_ed": [_P] * 7 + [_I] * 4 + [_P],
     "isocon_myers_hw": [_P] * 8 + [_I] * 4 + [_P],
     "isocon_affine_fwd": [_P] * 14 + [_I] * 5 + [_P],
-    "isocon_affine_walk": [_P] * 8 + [_I] * 5 + [_P],
+    "isocon_affine_walk": [_P] * 18 + [_I] * 6 + [_P],
     "isocon_wavefront_ed": [_P] * 9 + [_I] * 7 + [_P],
     "isocon_sketch_scores": [_P] * 4 + [_I] * 6 + [_P],
     "isocon_sketch_topn": [_P] * 4 + [_I] * 5 + [_P],

@@ -228,6 +228,73 @@ def sg_walk_plain(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
     return ops, i, j, ov
 
 
+# the letter of each base code in the aligned rows (``encode.decode_seq``'s:
+# A C G T N, X for any other code)
+_ROW_LETTERS = torch.full((256,), ord("X"), dtype=torch.uint8)
+for _code, _letter in enumerate("ACGTXN"):
+    _ROW_LETTERS[_code] = ord(_letter)
+
+
+def sg_rows_plain(ops: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
+                  fi: torch.Tensor, fj: torch.Tensor, ov: torch.Tensor,
+                  q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
+                  m: torch.Tensor, width: int):
+    """Plain version of K4's epilogue: each walk's two aligned rows and its
+    counts, the strings ``ops_to_alignment_counts`` builds from the walk
+
+        a1 = "-" * fj + q[:fi] + mid1 + q[ei:] + "-" * (m - ej)
+        a2 = t[:fj] + "-" * fi + mid2 + "-" * (n - ei) + t[ej:]
+
+    as ASCII bytes (the codes' letters, ``_ROW_LETTERS``).  ops, fi, fj, ov:
+    ``sg_walk_plain``'s outputs from (ei, ej); q, t: [B, Lp] codes, n, m
+    their lengths.  Returns a1, a2 uint8 [B, width] (zero past each row's
+    length), alen, nmat, nmis int32 [B] (the rows' length, matches and
+    mismatches; the indels are alen - nmat - nmis); overflowed pairs get
+    zeros.  ``width`` must be at least max(n + m)."""
+    dev = ops.device
+    L64 = lambda x: x.to(torch.int64)[:, None]
+    ei, ej, fi, fj, n, m = (L64(x) for x in (ei, ej, fi, fj, n, m))
+    k = (ops != OP_NONE).sum(1, keepdim=True)  # a final stop emits OP_NONE
+    pos = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+    p2 = fi + fj
+    p3 = p2 + k
+    p4 = p3 + (n - ei)
+    alen = p4 + (m - ej)
+    mid = (pos >= p2) & (pos < p3)
+    # forward step pos - p2 of the mid is backward step p3 - 1 - pos
+    back = (p3 - 1 - pos).clamp(0, ops.shape[1] - 1)
+    op = torch.where(mid, torch.gather(ops.to(torch.int64), 1, back),
+                     OP_NONE)
+    uq = mid & (op != OP_GAPQ)               # consumes a query base
+    ut = mid & (op != OP_GAPT)               # consumes a target base
+    qi = fi + torch.cumsum(uq, 1) - 1
+    ti = fj + torch.cumsum(ut, 1) - 1
+    q_at = torch.where(pos < p2, pos - fj, torch.where(pos < p3, qi,
+                                                       ei + pos - p3))
+    t_at = torch.where(pos < fj, pos, torch.where(pos < p3, ti,
+                                                  ej + pos - p4))
+    q_used = ((pos >= fj) & (pos < p2)) | uq | ((pos >= p3) & (pos < p4))
+    t_used = (pos < fj) | ut | ((pos >= p4) & (pos < alen))
+    letters = _ROW_LETTERS.to(dev)
+    dash = torch.tensor(ord("-"), dtype=torch.uint8, device=dev)
+
+    def row(codes, at, used):
+        Lp = codes.shape[1]
+        c = torch.gather(codes.to(torch.int64), 1, at.clamp(0, Lp - 1))
+        return torch.where(used, letters[c], dash)
+
+    ov = ov.to(torch.bool)[:, None]
+    live = (pos < alen) & ~ov
+    zero = torch.zeros((), dtype=torch.uint8, device=dev)
+    a1 = torch.where(live, row(q, q_at, q_used), zero)
+    a2 = torch.where(live, row(t, t_at, t_used), zero)
+    diag = live & mid & (op == OP_DIAG)
+    nmat = (diag & (a1 == a2)).sum(1).to(torch.int32)
+    nmis = (diag & (a1 != a2)).sum(1).to(torch.int32)
+    alen = torch.where(ov, 0, alen)[:, 0].to(torch.int32)
+    return a1, a2, alen, nmat, nmis
+
+
 _DASH = np.uint8(ord("-"))
 
 
@@ -303,6 +370,29 @@ def ops_to_alignment_counts(opcodes, q: str, t: str, end_i: int, end_j: int,
     a2 = t[:stop_j] + "-" * stop_i + mid2 + "-" * len(t1) + t2
     indels = len(a1) - matches - mismatches
     return a1, a2, (matches, mismatches, indels)
+
+
+def respell_rows(a1: str, a2: str, q: str, t: str):
+    """K4's aligned rows of q against t (``sg_rows_plain``'s) spelt with
+    q's and t's own letters, and the (matches, mismatches, indels) of
+    ``ops_to_alignment_counts``.  The rows' letters come from the base
+    codes, which do not give back lowercase or letters other than A, C, G,
+    T and N; a row's bytes other than its dashes are its sequence in
+    order, so each takes the sequence's bytes there."""
+    r1 = np.frombuffer(a1.encode("latin1"), dtype=np.uint8)
+    r2 = np.frombuffer(a2.encode("latin1"), dtype=np.uint8)
+    u1 = r1 != _DASH
+    u2 = r2 != _DASH
+    s1 = r1.copy()
+    s2 = r2.copy()
+    s1[u1] = np.frombuffer(q.encode("latin1"), dtype=np.uint8)
+    s2[u2] = np.frombuffer(t.encode("latin1"), dtype=np.uint8)
+    both = u1 & u2
+    eq = s1 == s2
+    matches = int((both & eq).sum())
+    mismatches = int((both & ~eq).sum())
+    return (s1.tobytes().decode("latin1"), s2.tobytes().decode("latin1"),
+            (matches, mismatches, len(a1) - matches - mismatches))
 
 
 def decode_traceback(

@@ -3,15 +3,20 @@
 Counterpart of ``isocon_tpu/ops/affine_pallas_c.py``
 (``sg_align_pool_pallas_c``): the pairs' sequences are read from the
 device-resident pool by row index, the per-pair scores go in as int32
-vectors, and the kernels return (best, ei, ej, ops, fi, fj, overflow).
+vectors, and the kernels return (best, ei, ej, ops, fi, fj, overflow)
+and the aligned rows.
 For CUDA tensors ``affine_fwd`` / ``affine_walk`` launch
 ``csrc/affine_sg.cu``; for CPU tensors they run the plain versions in
 ``affine.py``.
 
 Wire format: ``ops`` is uint8 [B, nops] with nops = max(n + m) + 1, one
 opcode per walk step, backward and contiguous, OP_NONE after the walk
-ends.  ``fetch`` copies the outputs to the host, trimming ``ops`` to the
-longest walk; ``affine.ops_to_alignment_counts`` decodes a row.
+ends.  K4 also turns each walk into the pair's two aligned rows, ``a1``
+and ``a2`` uint8 [B, nops - 1] (the ASCII strings
+``affine.ops_to_alignment_counts`` builds from the opcodes), with their
+length and the walk's matches and mismatches.  ``fetch`` copies the
+outputs but the opcodes to the host, the rows trimmed to the longest
+aligned length.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .affine import sg_forward_plain, sg_walk_plain
+from .affine import sg_forward_plain, sg_rows_plain, sg_walk_plain
 
 KERNEL_WPS = (256, 512, 1024, 2048, 4096, 8192)
 # K4 stages the direction bytes in tiles of this many diagonals (rows of
@@ -96,12 +101,25 @@ def affine_fwd_cuda(pool: torch.Tensor, qrow: torch.Tensor,
 
 
 def affine_walk(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, *,
-                Wp: int, nops: int):
-    """K4: -> (ops uint8 [B, nops], fi, fj int32 [B], overflow bool [B])."""
+                Wp: int, nops: int, seqs):
+    """K4 and its epilogue: -> (ops uint8 [B, nops], fi, fj int32 [B],
+    overflow bool [B], a1, a2 uint8 [B, nops - 1], alen, nmat, nmis int32
+    [B]).  ``seqs`` = (pool, qrow, trow, n, m): each pair's query and
+    target as pool rows and lengths, of which the epilogue writes each
+    walk's aligned rows, their length and the walk's matches and
+    mismatches, as ``affine.sg_rows_plain``; ``nops`` must exceed
+    max(n + m).  On the card the bytes of a row past its length are left
+    unwritten."""
+    pool, qrow, trow, n, m = seqs
     if dirs.device.type == "cpu":
-        return sg_walk_plain(dirs, ei, ej, Wp, nops)
+        ops, fi, fj, ov = sg_walk_plain(dirs, ei, ej, Wp, nops)
+        return (ops, fi, fj, ov) + sg_rows_plain(
+            ops, ei, ej, fi, fj, ov, pool[qrow.long()], pool[trow.long()],
+            n, m, nops - 1)
     if Wp not in KERNEL_WPS:
         raise ValueError("no affine kernel for band width %d" % Wp)
+    if pool.dtype != torch.uint8:
+        raise ValueError("pool must be uint8")
     lib = _build.load("affine_sg")
     dev = dirs.device
     B, S, W = dirs.shape
@@ -109,20 +127,26 @@ def affine_walk(dirs: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor, *,
         raise ValueError("dirs width %d does not match band %d" % (W, Wp))
     ops = torch.zeros((B, nops), dtype=torch.uint8, device=dev)
     fi = torch.empty(B, dtype=torch.int32, device=dev)
-    fj = torch.empty_like(fi)
-    ov = torch.empty_like(fi)
+    fj, ov, alen, nmat, nmis = (torch.empty_like(fi) for _ in range(5))
+    a1 = torch.empty((B, nops - 1), dtype=torch.uint8, device=dev)
+    a2 = torch.empty_like(a1)
     if B == 0:
-        return ops, fi, fj, ov != 0
+        return ops, fi, fj, ov != 0, a1, a2, alen, nmat, nmis
     # the persistent grid's pair counter; the C entry zeroes it
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    args = [dirs.contiguous(), _i32(ei), _i32(ej), ops, fi, fj, ov, counter]
+    args = [dirs.contiguous(), _i32(ei), _i32(ej), ops, fi, fj, ov, counter,
+            pool.contiguous(), _i32(qrow), _i32(trow), _i32(n), _i32(m), a1,
+            a2, alen, nmat, nmis]
+    if any(a.device != dev for a in args):
+        raise ValueError("affine inputs on mixed devices")
     P = ctypes.c_void_p
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.launch(dev, "affine_walk", lib.isocon_affine_walk,
                   *[P(a.data_ptr()) for a in args], ctypes.c_int(B),
                   ctypes.c_int(S), ctypes.c_int(Wp), ctypes.c_int(nops),
-                  ctypes.c_int(WALK_TILE_ROWS), P(stream))
-    return ops, fi, fj, ov != 0
+                  ctypes.c_int(WALK_TILE_ROWS), ctypes.c_int(pool.shape[1]),
+                  P(stream))
+    return ops, fi, fj, ov != 0, a1, a2, alen, nmat, nmis
 
 
 def sg_align_pool(pool: torch.Tensor, plen: torch.Tensor, ia: torch.Tensor,
@@ -135,8 +159,9 @@ def sg_align_pool(pool: torch.Tensor, plen: torch.Tensor, ia: torch.Tensor,
     as positive penalties).  ``nm_max``: the longest n + m of the pairs
     (at least its true value), from the caller, so that the launches do
     not wait for the stream; None reads it from the pool's lengths.
-    Returns (best, ei, ej, ops, fi, fj, overflow) on the pool's device.
-    K3's direction scratch is dropped once K4 is queued, so the caching
+    Returns (best, ei, ej, ops, fi, fj, overflow, a1, a2, alen, nmat, nmis)
+    on the pool's device (``affine_walk``'s outputs after K3's).  K3's
+    direction scratch is dropped once K4 is queued, so the caching
     allocator reuses it in stream order."""
     ia = ia.long()
     ib = ib.long()
@@ -146,16 +171,21 @@ def sg_align_pool(pool: torch.Tensor, plen: torch.Tensor, ia: torch.Tensor,
         nm_max = int((n + m).max()) if ia.numel() else 0
     best, ei, ej, dirs = affine_fwd(pool, ia, ib, n, m, match, mismatch,
                                     gopen, gext, Wp=Wp, nm_max=nm_max)
-    ops, fi, fj, ov = affine_walk(dirs, ei, ej, Wp=Wp, nops=int(nm_max) + 1)
-    return best, ei, ej, ops, fi, fj, ov
+    walk = affine_walk(dirs, ei, ej, Wp=Wp, nops=int(nm_max) + 1,
+                       seqs=(pool, ia, ib, n, m))
+    return (best, ei, ej) + walk
 
 
 def fetch(outs) -> Tuple[np.ndarray, ...]:
-    """Host copies of ``sg_align_pool``'s outputs, ops trimmed to the
-    longest walk (the rest of every row is OP_NONE)."""
-    best, ei, ej, ops, fi, fj, ov = outs
-    steps = (ei - fi) + (ej - fj)
-    k = int(steps.max()) if steps.numel() else 0
-    return (best.cpu().numpy(), ei.cpu().numpy(), ej.cpu().numpy(),
-            ops[:, :max(k, 1)].cpu().numpy(), fi.cpu().numpy(),
-            fj.cpu().numpy(), ov.cpu().numpy())
+    """Host copies of ``sg_align_pool``'s outputs: (best, ei, ej, fi, fj,
+    overflow, alen, nmat, nmis, a1, a2), the rows trimmed to the longest
+    aligned length (a row's bytes past its own length are not its own).
+    The opcodes stay on the device.  Two copies: the vectors, both rows."""
+    best, ei, ej, _ops, fi, fj, ov, a1, a2, alen, nmat, nmis = outs
+    vec = torch.stack([best, ei, ej, fi, fj, ov.to(torch.int32), alen, nmat,
+                       nmis]).cpu().numpy()
+    A = max(int(vec[6].max()), 1) if vec.shape[1] else 1
+    # one copy of both, each row array contiguous on the host
+    rows = torch.stack([a1[:, :A], a2[:, :A]]).cpu().numpy()
+    return (vec[0], vec[1], vec[2], vec[3], vec[4], vec[5] != 0, vec[6],
+            vec[7], vec[8], rows[0], rows[1])

@@ -11,7 +11,14 @@ exact.  Pools wider than MYERS_MAX_L (reads longer than 16,384 bases) run
 the banded wavefront kernel (K5) instead, NW and HW, doubling the band from
 128 lanes until the result certifies.  Alignments run the
 affine forward (K3) and walk (K4) kernels in a band chosen from the edit
-distance and double the band on overflow.
+distance and double the band on overflow.  K4 also writes each pair's two
+aligned strings and counts, which the host slices out of one decoded
+string a batch.  The kernels read codes, and the code of a base does not
+give back its letter (``encode_seq`` maps lowercase to the upper-case
+codes and every other letter to one code), so the pool marks each row
+whose string holds only A, C, G, T and N; a pair with another row has
+its sliced rows spelt with its own letters and its counts taken again on
+the host (``affine.respell_rows``).
 
 Results depend only on the exact edit distance and the caller's cap, so
 the decisions equal the JAX engine's whatever the window ladder.
@@ -36,7 +43,9 @@ Alignments always run the banded K3/K4 (their plain versions on the CPU).
 """
 from __future__ import annotations
 
+import codecs
 import os
+import re
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,7 +55,7 @@ from torch.profiler import record_function
 
 from .. import native
 from . import oracle
-from .affine import BandOverflow, ops_to_alignment_counts
+from .affine import BandOverflow, respell_rows
 from .encode import encode_seq
 from .affine_cuda import fetch, sg_align_pool
 from .myers import (myers_certifies, myers_certifies_hw, myers_ed_pool,
@@ -68,6 +77,8 @@ WAVE_BATCH = 16384        # pairs per K5 launch (one warp a pair at Wp <= 1024)
 ALIGN_BATCH = 8192        # pairs per K3/K4 launch ...
 ALIGN_SCRATCH_BYTES = 16e9  # ... capped by the K3 direction scratch
 PEQ_CHUNK_ROWS = 8192
+# the strings whose pool rows give them back letter for letter
+_EXACT = re.compile(r"[ACGTN]*")
 
 
 def _nbytes(arrays) -> int:
@@ -110,8 +121,9 @@ class _SeqPool:
     computed there.  On a card the copy is queued from pinned memory and
     does not wait for the stream.  ``with_peq=False`` (pools the Myers
     kernels never read) keeps no planes: ``peq`` is an empty tensor.
-    ``counters``: the engine's, whose ``upload_bytes`` counts the rows and
-    lengths sent."""
+    ``exact[r]``: row r's string holds only A, C, G, T and N, so K4's rows
+    spell it.  ``counters``: the engine's, whose ``upload_bytes`` counts
+    the rows and lengths sent."""
 
     def __init__(self, L: int, device: torch.device, counters: dict,
                  min_rows: int = 0, with_peq: bool = True):
@@ -128,6 +140,7 @@ class _SeqPool:
         self.lens = torch.ones(cap, dtype=torch.int32, device=device)
         self.peq = torch.zeros((cap, 5, self._peq_words), dtype=torch.int32,
                                device=device)
+        self.exact = np.zeros(cap, dtype=bool)
 
     def intern(self, seq: str, enc) -> int:
         r = self.rows.get(seq)
@@ -135,6 +148,10 @@ class _SeqPool:
             return r
         self._pending.append(enc(seq))
         r = self.rows[seq] = self.n
+        if r == self.exact.size:
+            self.exact = np.concatenate([self.exact, np.zeros_like(
+                self.exact)])
+        self.exact[r] = _EXACT.fullmatch(seq) is not None
         self.n += 1
         return r
 
@@ -297,6 +314,11 @@ class PairEngine:
             # and around each alignment batch's decode loop
             "ed_wait_seconds": 0.0, "align_wait_seconds": 0.0,
             "align_decode_seconds": 0.0,
+            # alignments whose strings and counts are K4's rows as the
+            # card wrote them, and those whose rows the host spelt again
+            # with the pair's letters (a side whose letters the codes do
+            # not give back)
+            "align_card_rows": 0, "align_host_rows": 0,
             # bytes of the host arrays the collects returned, and of the
             # caller's arrays sent to the device through
             # ``parallel.sharding.upload`` (pool rows and lengths, index and
@@ -314,10 +336,12 @@ class PairEngine:
         c = self.counters
         return (
             "engine: %d EDs in %.1fs (%d calls, %d full-window, "
-            "%d wavefront), %d alignments in %.1fs (%d calls)" % (
+            "%d wavefront), %d alignments in %.1fs (%d calls; %d card rows, "
+            "%d host rows)" % (
                 c["ed_pairs"], c["ed_seconds"], c["ed_calls"],
                 c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
                 c["align_pairs"], c["align_seconds"], c["align_calls"],
+                c["align_card_rows"], c["align_host_rows"],
             )
         )
 
@@ -700,7 +724,7 @@ class PairEngine:
         nm = la + lb
         while todo.size:
             # every chunk of the round is launched, then the chunks are
-            # collected in launch order: the host decodes one while the
+            # collected in launch order: the host slices one while the
             # card runs the ones after it
             launched = []
             Lb_arr = _pool_widths(lmax[todo])
@@ -712,6 +736,7 @@ class PairEngine:
                                     1 << max(cap.bit_length() - 1, 0)))
                 pool = self._get_pool(Lb)
                 ia_all, ib_all = self._rows(pool, Lb, pairs, idxs, _idx)
+                respell_all = ~(pool.exact[ia_all] & pool.exact[ib_all])
                 mat, plen, _peq = pool.tensors()
                 for s in range(0, len(idxs), bchunk):
                     chunk = idxs[s: s + bchunk]
@@ -722,14 +747,23 @@ class PairEngine:
                         sg_align_pool, (mat, plen), vecs, to_host=fetch,
                         Wp=Wp, nm_max=int(nm[chunk].max()))
                     self.counters["upload_bytes"] += _nbytes(vecs)
-                    launched.append((chunk, batch, Lb, Wp))
+                    launched.append((chunk, respell_all[s: s + bchunk],
+                                     batch, Lb, Wp))
             next_round = []
-            for chunk, batch, Lb, Wp in launched:
-                _best, ei, ej, ops, fi, fj, ov = self._collect(
-                    batch, "align_wait_seconds")
+            for chunk, respell, batch, Lb, Wp in launched:
+                (_best, _ei, _ej, _fi, _fj, ov, alen, nmat, nmis, a1,
+                 a2) = self._collect(batch, "align_wait_seconds")
                 t_decode = time.perf_counter()
-                for pos, i in enumerate(chunk.tolist()):
-                    if ov[pos]:
+                # one string a row array, decoded from its buffer; a pair's
+                # rows are slices of it
+                w = a1.shape[1]
+                s1 = codecs.latin_1_decode(np.ascontiguousarray(a1))[0]
+                s2 = codecs.latin_1_decode(np.ascontiguousarray(a2))[0]
+                card = host = 0
+                for pos, (i, o, r, A, ma, mi) in enumerate(zip(
+                        chunk.tolist(), ov.tolist(), respell.tolist(),
+                        alen.tolist(), nmat.tolist(), nmis.tolist())):
+                    if o:
                         self.counters["align_overflows"] += 1
                         bands[i] = Wp * 2
                         if bands[i] > 4 * Lb + 512:
@@ -737,10 +771,17 @@ class PairEngine:
                             raise BandOverflow((a[:30], b[:30], Wp))
                         next_round.append(i)
                         continue
-                    a, b = pairs[i]
-                    out[i] = ops_to_alignment_counts(
-                        ops[pos], a, b, int(ei[pos]), int(ej[pos]),
-                        int(fi[pos]), int(fj[pos]))
+                    x = pos * w
+                    if r:
+                        a, b = pairs[i]
+                        out[i] = respell_rows(s1[x:x + A], s2[x:x + A], a, b)
+                        host += 1
+                    else:
+                        out[i] = (s1[x:x + A], s2[x:x + A],
+                                  (ma, mi, A - ma - mi))
+                        card += 1
+                self.counters["align_card_rows"] += card
+                self.counters["align_host_rows"] += host
                 self.counters["align_decode_seconds"] += (
                     time.perf_counter() - t_decode)
             todo = np.asarray(next_round, dtype=np.int64)

@@ -47,8 +47,8 @@ def _pad_rows(x: np.ndarray, total: int) -> np.ndarray:
 
 
 def _pad_width(x: np.ndarray, width: int) -> np.ndarray:
-    """A [B, w] block widened to ``width`` columns of zeros (OP_NONE for
-    the walk's opcodes, which ``fetch`` trims to each block's longest)."""
+    """A [B, w] block widened to ``width`` columns of zeros (past the end
+    of the aligned rows, which ``fetch`` trims to each block's longest)."""
     if x.ndim < 2 or x.shape[1] == width:
         return x
     out = np.zeros((x.shape[0], width) + x.shape[2:], dtype=x.dtype)
@@ -252,8 +252,8 @@ class Sharder:
 
     def sg_align_pool(self, pool, plen, ia, ib, match, mismatch, gopen,
                       gext, *, Wp: int) -> Tuple[np.ndarray, ...]:
-        """K3 + K4 (``ops.affine_cuda.sg_align_pool``): the seven host
-        outputs of ``fetch``, ops trimmed to the longest walk."""
+        """K3 + K4 (``ops.affine_cuda.sg_align_pool``): the eleven host
+        outputs of ``fetch``, the aligned rows trimmed to the longest."""
         return self.collect(self.launch(
             sg_align_pool, (pool, plen),
             (ia, ib, match, mismatch, gopen, gext), to_host=fetch, Wp=Wp))

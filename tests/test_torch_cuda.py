@@ -86,7 +86,7 @@ def test_build_table_lists_every_kernel():
     for entry in ("scores", "topn", "merge"):
         assert "ISOCON_API int isocon_sketch_%s(" % entry in src
     assert len(_build._SIGNATURES["isocon_affine_fwd"]) == 20
-    assert len(_build._SIGNATURES["isocon_affine_walk"]) == 14
+    assert len(_build._SIGNATURES["isocon_affine_walk"]) == 25
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
@@ -412,7 +412,8 @@ def test_affine_register_kernel_ragged_batch(Wp):
                 pool, idx, idx + B0, n[idx], m[idx], ma[idx], mi[idx],
                 go[idx], ge[idx], Wp=Wp, warps=warps)
             got = (best, ei, ej) + tac.affine_walk(
-                dirs, ei, ej, Wp=Wp, nops=int((n[idx] + m[idx]).max()) + 1)
+                dirs, ei, ej, Wp=Wp, nops=int((n[idx] + m[idx]).max()) + 1,
+                seqs=(pool, idx, idx + B0, n[idx], m[idx]))
         else:
             got = tac.sg_align_pool(pool, plen, idx, idx + B0, ma[idx],
                                     mi[idx], go[idx], ge[idx], Wp=Wp)
@@ -468,7 +469,7 @@ def _walk_pairs(seed, B, L, Wp):
 
 @pytest.mark.parametrize("Wp", [256, 1024, 2048])
 def test_affine_walk_kernel_tile_crossings(Wp):
-    """K4 alone against ``sg_walk_plain`` on every entry, on the direction
+    """K4's walk against ``sg_walk_plain`` on every entry, on the direction
     bytes K3 writes (its register kernel at 256 and 1024, its block kernel
     at 2048) for ``_walk_pairs`` of up to 4096 codes: gap runs that cross
     many tiles, walks on both band edges, band overflow.  At band 256 also
@@ -492,7 +493,8 @@ def test_affine_walk_kernel_tile_crossings(Wp):
     ov = want[3].cpu().numpy()
     assert ov[1::8].all() and ov[2::8].all() and not ov[::8].any()
     before = _build.LAUNCHES["affine_walk"]
-    got = tac.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops)
+    got = tac.affine_walk(dirs, ei, ej, Wp=Wp, nops=nops,
+                          seqs=(pool, k, k + B0, n, m))
     torch.cuda.synchronize()
     assert _build.LAUNCHES["affine_walk"] == before + 1
     for g, w in zip(got, want):
@@ -500,10 +502,107 @@ def test_affine_walk_kernel_tile_crossings(Wp):
     if Wp == 256:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         idx = (torch.arange(64 * sms + B0, device=dev) * 7) % B0
-        got = tac.affine_walk(dirs[idx], ei[idx], ej[idx], Wp=Wp, nops=nops)
+        got = tac.affine_walk(dirs[idx], ei[idx], ej[idx], Wp=Wp, nops=nops,
+                              seqs=(pool, idx, idx + B0, n[idx], m[idx]))
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w[idx])
+
+
+def _rows_to_length(a1, a2, alen, nmat, nmis):
+    """K4's rows with the bytes past each row's length (which the card
+    leaves unwritten) zeroed, as ``sg_rows_plain`` gives them."""
+    pos = torch.arange(a1.shape[1], device=a1.device)[None, :]
+    keep = pos < alen.long()[:, None]
+    return (torch.where(keep, a1, 0), torch.where(keep, a2, 0), alen, nmat,
+            nmis)
+
+
+def _long_walk_pairs(seed, B, L):
+    """Pairs of 16.5-20 k codes in a pool of width L (32,768): noisy copies
+    (a walk of some 36 k steps), copies with 60-base insertions on either
+    side and with clipped ends (end gaps)."""
+    rs = np.random.default_rng(seed)
+    q = np.full((B, L), 6, np.int8)
+    t = np.full((B, L), 6, np.int8)
+    ql = np.zeros(B, np.int32)
+    tl = np.zeros(B, np.int32)
+    rand = lambda k: rs.choice(_ALPHA, size=k)
+    for b in range(B):
+        n = int(rs.integers(16500, 20000))
+        a = rand(n)
+        o = np.where(rs.random(n) < 0.01, rand(n), a)[rs.random(n) >= 0.005]
+        if b % 3 == 1:
+            o = np.concatenate([o[:n // 3], rand(60), o[n // 3:]])
+            a = np.concatenate([a[:2 * n // 3], rand(60), a[2 * n // 3:]])
+        elif b % 3 == 2:
+            o = o[int(rs.integers(1, 40)):o.size - int(rs.integers(1, 40))]
+        q[b, :a.size] = a
+        t[b, :o.size] = o
+        ql[b], tl[b] = a.size, o.size
+    return q, t, ql, tl
+
+
+@pytest.mark.parametrize("case,Wp", [("tiles", 256), ("tiles", 512),
+                                     ("tiles", 1024), ("tiles", 2048),
+                                     ("ragged", 256), ("few", 256),
+                                     ("long", 256)])
+def test_affine_walk_rows_match_plain(case, Wp):
+    """K4's epilogue against ``sg_rows_plain`` on the kernel's own walks:
+    both rows byte for byte up to their length, their lengths, the matches
+    and mismatches.  The walk's own outputs are ``sg_walk_plain``'s where
+    that is cheap (L 4,096).
+    ``tiles``: ``_walk_pairs`` (gap runs across tiles, both band edges,
+    overflow, walks of thousands of steps over the 128-step ring);
+    ``ragged``: the same walks, more pairs than the persistent grid holds
+    warps, each warp walking several in turn; ``few``: a launch of three
+    pairs; ``long``: six pairs of 16.5-20 k codes at L 32,768."""
+    dev = _card()
+    if case == "long":
+        L, B0 = 32768, 6
+        q, t, ql, tl = _long_walk_pairs(Wp, B0, L)
+    else:
+        L, B0 = 4096, 24
+        q, t, ql, tl = _walk_pairs(Wp, B0, L, Wp)
+    pool, plen = pool_from_numpy(np.concatenate([q, t]).reshape(-1),
+                                 np.concatenate([ql, tl]), L, dev)
+    k = torch.arange(B0, device=dev)
+    full = lambda v: torch.full((B0,), v, dtype=torch.int32, device=dev)
+    mi = torch.tensor([-1, -2, -4], dtype=torch.int32, device=dev)[k % 3]
+    best, ei, ej, dirs = tac.affine_fwd(pool, k, k + B0, plen[:B0],
+                                        plen[B0:], full(2), mi, full(2),
+                                        (k % 2).to(torch.int32), Wp=Wp)
+    idx = k
+    if case == "ragged":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        idx = (torch.arange(64 * sms + B0, device=dev) * 7) % B0
+    elif case == "few":
+        idx = k[[5, 0, 17]]
+    n, m = plen[idx], plen[B0 + idx]
+    nops = int((n + m).max()) + 1
+    seqs = (pool, idx, B0 + idx, n, m)
+    before = _build.LAUNCHES["affine_walk"]
+    got = tac.affine_walk(dirs[idx], ei[idx], ej[idx], Wp=Wp, nops=nops,
+                          seqs=seqs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["affine_walk"] == before + 1
+    assert len(got) == 9
+    if case != "long":
+        for g, w in zip(got, ta.sg_walk_plain(dirs[idx], ei[idx], ej[idx],
+                                              Wp, nops)):
+            assert torch.equal(g, w)
+    ops, fi, fj, ov = got[:4]
+    want = ta.sg_rows_plain(ops, ei[idx], ej[idx], fi, fj, ov,
+                            pool[idx], pool[B0 + idx], n, m, nops - 1)
+    for g, w in zip(_rows_to_length(*got[4:]), want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    alen = got[6]
+    assert bool((alen > 0).any())
+    if case == "tiles":
+        assert bool(ov.any()) and bool((alen[ov] == 0).all())
+        assert int((ops != 0).sum(1).max()) > 4 * 128   # the ring turns
+    if case == "long":
+        assert int((alen > 16000).sum()) >= 4
 
 
 def _wavefront_code_pairs(seed, B, L):
@@ -936,7 +1035,8 @@ def test_sharder_matches_local_wrappers(mesh):
     (whose block runs the plain versions on a replica of the pool), equals
     the unsharded wrappers on a ragged batch of 151 pairs: K1 (windows 7
     and 33), K2, K5 (bands 128 and 256, NW and HW) and K3 + K4 (band 256,
-    pairs that overflow included), every entry."""
+    pairs that overflow included; K4's aligned rows, up to each row's
+    length, and counts), every entry."""
     from isocon_tpu_torch.parallel import Sharder
 
     dev = _card()
@@ -975,9 +1075,15 @@ def test_sharder_matches_local_wrappers(mesh):
     want = tac.fetch(tac.sg_align_pool(
         pool, plen, ia_t, ib_t, *(torch.from_numpy(x).to(dev)
                                   for x in scores), Wp=256))
-    assert got[-1].any() and not got[-1].all()    # some pairs overflow
-    for g, w in zip(got, want):
+    assert got[5].any() and not got[5].all()      # some pairs overflow
+    assert len(got) == len(want) == 11
+    keep = np.arange(want[9].shape[1])[None, :] < want[6][:, None]
+    for g, w in zip(got[:9], want):
         np.testing.assert_array_equal(g, w)
+    for g, w in zip(got[9:], want[9:]):     # the rows, up to their length
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(np.where(keep, g, 0),
+                                      np.where(keep, w, 0))
 
 
 def test_engine_pool_replicas_follow_its_growth():

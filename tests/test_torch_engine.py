@@ -155,6 +155,69 @@ def test_align_pairs_match_jax_banded_path(monkeypatch):
     assert PairEngine(device="cpu").align_pairs(pairs, scores) == want
 
 
+def _rows_route_case(case):
+    """(pairs, scores, pairs whose strings the codes do not give back) of
+    one case of ``test_align_rows_route_and_counters``."""
+    if case == "overflow":
+        pairs, scores = _align_case(5, drift=False)
+        return pairs, scores, set()
+    rng = random.Random(17)
+    pairs = []
+    for i in range(18):
+        a = _rs(rng, rng.randrange(150, 400))
+        pairs.append((a, _mut(rng, a[rng.randrange(0, 30):],
+                              rng.randrange(0, 25))))
+    pairs[4] = (pairs[4][0][:50] + "N" + pairs[4][0][51:], pairs[4][1])
+    host = set()
+    if case == "mixed":
+        a, b = pairs[2]
+        pairs[2] = (a.lower(), b)                        # lowercase query
+        a, b = pairs[7]
+        pairs[7] = (a, b[:60] + "R" + b[61:])            # IUPAC in target
+        a, b = pairs[11]
+        pairs[11] = (a[:30] + "acgt" + a[34:], b.lower())
+        host = {2, 7, 11}
+    scores = [(2, (-1, -2, -4)[i % 3], 2, (0, 1)[i % 2])
+              for i in range(len(pairs))]
+    return pairs, scores, host
+
+
+@pytest.mark.parametrize("case,index", [("acgt", False), ("acgt", True),
+                                        ("mixed", False), ("mixed", True),
+                                        ("overflow", False)])
+def test_align_rows_route_and_counters(monkeypatch, case, index):
+    """Pairs whose strings hold only A, C, G, T and N take their strings
+    and counts from K4's rows as they are (``align_card_rows``); a pair
+    with a lowercase or IUPAC letter on either side has its rows spelt
+    with its own letters and its counts taken again on the host
+    (``align_host_rows``), and only that pair; a pair whose band overflows
+    is counted once, after its retry; an empty side is counted in
+    neither.  Every result equals the JAX engine's banded path, by
+    the string API and by the index API; ``stats_line`` prints both
+    counts."""
+    monkeypatch.setenv("ISOCON_NO_NATIVE", "1")
+    pairs, scores, host = _rows_route_case(case)
+    want = JaxEngine().align_pairs(pairs, scores)
+    port = PairEngine(device="cpu")
+    if index:
+        seqs = sorted({s for p in pairs for s in p})
+        ids = port.add_seqs(seqs)
+        pos = {s: ids[k] for k, s in enumerate(seqs)}
+        got = port.align_pairs_idx(np.array([pos[a] for a, _ in pairs]),
+                                   np.array([pos[b] for _, b in pairs]),
+                                   scores)
+    else:
+        got = port.align_pairs(pairs, scores)
+    assert got == want
+    c = port.counters
+    empty = sum(1 for a, b in pairs if not a or not b)
+    assert c["align_host_rows"] == len(host)
+    assert c["align_card_rows"] == len(pairs) - empty - len(host)
+    assert (c["align_overflows"] > 0) == (case == "overflow")
+    assert "%d card rows, %d host rows" % (
+        c["align_card_rows"], c["align_host_rows"]) in port.stats_line()
+
+
 def test_stats_line_and_counters():
     port = PairEngine(device="cpu")
     port.edit_distances([("ACGT", "ACGA")])

@@ -17,11 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from isocon_tpu.ops.affine import ops_to_alignment as jax_decode
+from isocon_tpu.ops.affine import ops_to_alignment_counts as jax_counts
 from isocon_tpu.ops.affine_pallas_c import unpack_ops
 from isocon_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from isocon_tpu.parallel.sharding import Sharder as JaxSharder
-from isocon_tpu_torch.ops import affine as ta
 from isocon_tpu_torch.ops import affine_cuda as tac
 from isocon_tpu_torch.ops import myers as tm
 from isocon_tpu_torch.ops import wavefront as tw
@@ -213,9 +212,10 @@ def align_data():
 
 @pytest.mark.parametrize("n", NS)
 def test_sharded_alignment_matches_local_and_jax(align_data, n):
-    """The seven host outputs equal the unsharded wrapper's fetched ones
-    (ops trimmed alike); score, endpoints, start, overflow and decoded
-    alignment equal the JAX Sharder's on all the pool's pairs."""
+    """The eleven host outputs equal the unsharded wrapper's fetched ones
+    (rows trimmed alike); score, endpoints, start and overflow equal the
+    JAX Sharder's on all the pool's pairs, and each pair's rows spell its
+    alignment, with the JAX decode's counts."""
     pairs, scores, (pool_flat, plen_np, pool, plen) = align_data
     every = _jax_pad(np.arange(P, dtype=np.int32), 128 * n)
     scal, packed = JaxSharder(jax_make_mesh(n)).sg_align_pool(
@@ -231,17 +231,21 @@ def test_sharded_alignment_matches_local_and_jax(align_data, n):
         local = tac.fetch(tac.sg_align_pool(
             pool, plen, torch.from_numpy(ia), torch.from_numpy(ib),
             *(torch.from_numpy(x) for x in sc), Wp=256))
-        assert len(got) == 7
+        assert len(got) == 11
         for g, lo in zip(got, local):
             assert g.dtype == lo.dtype
             np.testing.assert_array_equal(g, lo)
-        best, ei, ej, ops, fi, fj, ov = got
+        best, ei, ej, fi, fj, ov, alen, nmat, nmis, a1, a2 = got
         for g, w in zip((best, ei, ej, fi, fj, ov), scal):
             np.testing.assert_array_equal(g.astype(np.int32), w[ia])
         for x in range(B):
             a, b = pairs[ia[x]]
-            want = jax_decode(jops[ia[x]], a, b, int(ei[x]), int(ej[x]),
-                              int(fi[x]), int(fj[x]))
-            have = ta.ops_to_alignment(ops[x], a, b, int(ei[x]), int(ej[x]),
-                                       int(fi[x]), int(fj[x]))
-            assert have == want, x
+            end = (int(ei[x]), int(ej[x]), int(fi[x]), int(fj[x]))
+            want = jax_counts(jops[ia[x]], a, b, *end)
+            if not ov[x]:
+                A = int(alen[x])
+                have = (bytes(a1[x, :A]).decode("latin1"),
+                        bytes(a2[x, :A]).decode("latin1"),
+                        (int(nmat[x]), int(nmis[x]),
+                         A - int(nmat[x]) - int(nmis[x])))
+                assert have == want, x

@@ -26,8 +26,10 @@ and 119 pairs of the chunk's copies at band 512, L = 32,768; or, with
 ``--long``, else 2048).  ``--warps`` times each K3 shape with each number
 of warps a pair of the register kernel (1 or 4; 0, the default, lets the
 launch size choose, as the main path does).  K4 (``--kernel k4``): at the
-same shapes, K3 runs once for the direction bytes and only the walk is
-timed.  K6 (``--kernel k6``): the tree's ``ops/sketch.py::topn_indices``,
+same shapes, K3 runs once for the direction bytes and only K4 is timed,
+with its epilogue, the aligned rows, as the main path launches it
+("walk+rows"; a tree whose K4 writes no rows: the walk, "walk").
+K6 (``--kernel k6``): the tree's ``ops/sketch.py::topn_indices``,
 the top-20 of the sketch scores as its main path computes them, on the
 first round's profiles of the nontargeted run
 (``chip_smoke.nontargeted_profiles``, N = 10,000) and on their first
@@ -59,6 +61,7 @@ are compared on one card in one call, in turns, one process each:
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -173,11 +176,16 @@ def readings(cs, torch, np, dev, args):
             _ms, (_best, ei, ej, dirs), _nb, _ops, shape = cs.time_k3(
                 torch, acu, batch, Wp)
             nops = int((batch[3] + batch[4]).max()) + 1
+            # with the epilogue, the aligned rows, where the tree's K4
+            # writes them (as its main path launches it), else the walk
+            rows = "seqs" in inspect.signature(acu.affine_walk).parameters
             ms, got, nbytes, ops, chain, shape = cs.time_k4(
-                torch, acu, dirs, ei, ej, Wp, nops, shape)
+                torch, acu, dirs, ei, ej, Wp, nops, shape,
+                batch[:5] if rows else None)
+            label = "walk+rows" if rows else "walk"
+            yield label, ms, nbytes, ops, chain, shape
             del got, dirs
             torch.cuda.empty_cache()
-            yield "walk", ms, nbytes, ops, chain, shape
             continue
         for warps in args.warps:
             ms, got, nbytes, ops, shape = cs.time_k3(torch, acu, batch, Wp,

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where K4's time goes, per warp: the walk's steps against its tile copies.
+"""Where K4's time goes, per warp: the walk's steps against its tile copies,
+and its epilogue, the aligned rows.
 
 Builds a copy of ``isocon_tpu_torch/csrc/affine_sg.cu`` with ``clock64()``
 counters around each tile copy and around each pair's walk (a few lines
 edited in at fixed places of the walk kernel; the copy is built in a
 temporary directory, the tree's kernel stays as it is), and runs it on K3's
-direction bytes at ``tools/kernel_time.py``'s shapes (``K3_SHAPES``).  For
-each shape it prints the instrumented launch's ms (CUDA events), the steps
-and tiles a pair, the cycles a step outside the tile copies, the cycles a
-tile copy and the copies' share of the walk's cycles, summed over warps.
+direction bytes at ``tools/kernel_time.py``'s shapes (``K3_SHAPES``), with
+the pairs' sequences for the rows.  For each shape it prints the
+instrumented launch's ms (CUDA events), the steps and tiles a pair, the
+cycles a step outside the tile copies, the cycles a tile copy and the
+copies' share of the walk's cycles, and the epilogue's cycles a pair and
+its share of a pair's cycles, summed over warps.
 The counters add a few instructions a step and a tile, so the ms is not
 the kernel's: ``kernel_time.py --kernel k4`` times that.  Needs nvcc and
 a card.
@@ -29,7 +32,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EDITS = (
     ("constexpr int kRing = 128;\n",
      "constexpr int kRing = 128;\n"
-     "__device__ unsigned long long g_clocks[4];\n"),
+     "__device__ unsigned long long g_clocks[5];\n"),
     ("    int top = -1, ulo = 0;\n    int k = 0;\n",
      "    int top = -1, ulo = 0;\n    int k = 0;\n"
      "    long long t_pair = clock64(), t_copy = 0, copies = 0;\n"),
@@ -40,10 +43,14 @@ EDITS = (
      "        __syncwarp();\n",
      "        asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
      "        __syncwarp();\n        t_copy += clock64() - t0;\n"),
+    ("    // the rows need the whole opcode row",
+     "    const long long t_rows = clock64();\n"
+     "    // the rows need the whole opcode row"),
     ("    if (lane == 0) {\n      fi_out[b] = i;",
      "    if (lane == 0) {\n"
-     "      atomicAdd(&g_clocks[0],\n"
-     "                (unsigned long long)(clock64() - t_pair));\n"
+     "      atomicAdd(&g_clocks[0], (unsigned long long)(t_rows - t_pair));\n"
+     "      atomicAdd(&g_clocks[4],\n"
+     "                (unsigned long long)(clock64() - t_rows));\n"
      "      atomicAdd(&g_clocks[1], (unsigned long long)t_copy);\n"
      "      atomicAdd(&g_clocks[2], (unsigned long long)copies);\n"
      "      atomicAdd(&g_clocks[3], (unsigned long long)k);\n"
@@ -53,11 +60,11 @@ EDITS = (
 READ_ENTRY = """
 ISOCON_API int isocon_walk_clocks(void* out, int reset) {
   if (reset) {
-    const unsigned long long z[4] = {0, 0, 0, 0};
+    const unsigned long long z[5] = {0, 0, 0, 0, 0};
     return static_cast<int>(cudaMemcpyToSymbol(g_clocks, z, sizeof(z)));
   }
   return static_cast<int>(
-      cudaMemcpyFromSymbol(out, g_clocks, 4 * sizeof(unsigned long long)));
+      cudaMemcpyFromSymbol(out, g_clocks, 5 * sizeof(unsigned long long)));
 }
 """
 
@@ -115,15 +122,22 @@ def main() -> None:
             nops = int((batch[3] + batch[4]).max()) + 1
             _, S, _ = dirs.shape
             ops = torch.zeros((B, nops), dtype=torch.uint8, device=dev)
-            fi, fj, ov, counter = (torch.empty(B, dtype=torch.int32,
-                                               device=dev) for _ in range(4))
-            args = [dirs, ei, ej, ops, fi, fj, ov, counter]
+            fi, fj, ov, counter, alen, nmat, nmis = (
+                torch.empty(B, dtype=torch.int32, device=dev)
+                for _ in range(7))
+            a1, a2 = (torch.empty((B, nops - 1), dtype=torch.uint8,
+                                  device=dev) for _ in range(2))
+            pool = batch[0]
+            seqs = [x.to(torch.int32).contiguous() for x in batch[1:5]]
+            args = [dirs, ei, ej, ops, fi, fj, ov, counter, pool, *seqs, a1,
+                    a2, alen, nmat, nmis]
             stream = torch.cuda.current_stream(dev).cuda_stream
 
             def walk():
                 _build.check(so.isocon_affine_walk(
                     *[P(a.data_ptr()) for a in args], I(B), I(S), I(Wp),
-                    I(nops), I(acu.WALK_TILE_ROWS), P(stream)), "walk")
+                    I(nops), I(acu.WALK_TILE_ROWS), I(pool.shape[1]),
+                    P(stream)), "walk")
 
             walk()                                  # warm-up
             torch.cuda.synchronize()
@@ -134,17 +148,19 @@ def main() -> None:
             walk()
             end.record()
             torch.cuda.synchronize()
-            out = (ctypes.c_ulonglong * 4)()
+            out = (ctypes.c_ulonglong * 5)()
             _build.check(so.isocon_walk_clocks(ctypes.cast(out, P), 0),
                          "read")
-            pair, copy, tiles, steps = out
+            pair, copy, tiles, steps, rows = out
             print("%s: %.4f ms instrumented; %.0f steps and %.1f tiles a "
                   "pair; %.1f cycles a step outside the copies, %.0f a "
-                  "tile copy; copies %.3f of the walk's cycles"
+                  "tile copy; copies %.3f of the walk's cycles; the rows "
+                  "%.0f cycles a pair, %.3f of a pair's"
                   % (shape, start.elapsed_time(end), steps / B, tiles / B,
                      (pair - copy) / steps, copy / max(tiles, 1),
-                     copy / pair), flush=True)
-            del dirs, ops
+                     copy / pair, rows / B, rows / (pair + rows)),
+                  flush=True)
+            del dirs, ops, a1, a2
             torch.cuda.empty_cache()
 
 
