@@ -300,8 +300,10 @@ class PairEngine:
             "align_calls": 0, "align_pairs": 0, "align_seconds": 0.0,
             # pairs past the 33-word window, run by the full-width window
             "ed_pairs_full_window": 0,
-            # pairs run by the banded wavefront (pools above MYERS_MAX_L)
-            "ed_pairs_wavefront": 0,
+            # pairs run by the banded wavefront (pools above MYERS_MAX_L),
+            # and those runs that ran a pair again at a doubled band after
+            # its answer failed to certify
+            "ed_pairs_wavefront": 0, "wave_pairs_rerun": 0,
             # alignments re-run in a doubled band after a band overflow
             "align_overflows": 0,
             # pairs under the HW prefilter's cutoff that went to the host
@@ -311,9 +313,10 @@ class PairEngine:
             "sketch_rows": 0, "sketch_seconds": 0.0,
             # parts of ed_seconds and align_seconds: the host clock around
             # each batch's collect (the fetch and its wait for the device),
-            # and around each alignment batch's decode loop
+            # and around each alignment batch's decode loop; the part of
+            # ed_wait_seconds that the banded wavefront's collects take
             "ed_wait_seconds": 0.0, "align_wait_seconds": 0.0,
-            "align_decode_seconds": 0.0,
+            "align_decode_seconds": 0.0, "wave_wait_seconds": 0.0,
             # alignments whose strings and counts are K4's rows as the
             # card wrote them, and those whose rows the host spelt again
             # with the pair's letters (a side whose letters the codes do
@@ -336,10 +339,12 @@ class PairEngine:
         c = self.counters
         return (
             "engine: %d EDs in %.1fs (%d calls, %d full-window, "
-            "%d wavefront), %d alignments in %.1fs (%d calls; %d card rows, "
+            "%d wavefront, %d of them reruns, %.1fs of wavefront waits), "
+            "%d alignments in %.1fs (%d calls; %d card rows, "
             "%d host rows)" % (
                 c["ed_pairs"], c["ed_seconds"], c["ed_calls"],
                 c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
+                c["wave_pairs_rerun"], c["wave_wait_seconds"],
                 c["align_pairs"], c["align_seconds"], c["align_calls"],
                 c["align_card_rows"], c["align_host_rows"],
             )
@@ -552,7 +557,9 @@ class PairEngine:
                     self.counters["upload_bytes"] += _nbytes(vecs)
                     launched.append((idxs[sl], batch, wave))
             for chunk, batch, wave in launched:
-                res = self._collect(batch, "ed_wait_seconds")
+                keys = (("ed_wait_seconds", "wave_wait_seconds") if wave
+                        else ("ed_wait_seconds",))
+                res = self._collect(batch, *keys)
                 if hw_mode or wave:
                     ed, ej = res
                 else:
@@ -560,6 +567,8 @@ class PairEngine:
                     ej = lb[chunk].astype(np.int32)
                 if wave:
                     self.counters["ed_pairs_wavefront"] += len(chunk)
+                    if Wp > W0:
+                        self.counters["wave_pairs_rerun"] += len(chunk)
                     rung = ("HW" if hw_mode else "NW", Wp)
                     self.wavefront_rungs[rung] = (
                         self.wavefront_rungs.get(rung, 0) + len(chunk))
@@ -657,12 +666,14 @@ class PairEngine:
         return np.where((delta > o_hi) | (delta < o_lo), -1,
                         np.minimum(2 * o_hi - delta, -2 * o_lo + delta))
 
-    def _collect(self, batch, wait_key: str) -> Tuple[np.ndarray, ...]:
-        """``sharder.collect(batch)``, its host seconds added to
-        ``counters[wait_key]`` and its bytes to ``fetch_bytes``."""
+    def _collect(self, batch, *wait_keys: str) -> Tuple[np.ndarray, ...]:
+        """``sharder.collect(batch)``, its host seconds added to each of
+        ``counters[wait_keys]`` and its bytes to ``fetch_bytes``."""
         t0 = time.perf_counter()
         res = self.sharder.collect(batch)
-        self.counters[wait_key] += time.perf_counter() - t0
+        secs = time.perf_counter() - t0
+        for key in wait_keys:
+            self.counters[key] += secs
         self.counters["fetch_bytes"] += _nbytes(res)
         return res
 
