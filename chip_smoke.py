@@ -42,6 +42,10 @@ On one NVIDIA GPU (sm_90a) this script
    on the whole 8192-pair batch (band 256, L = 2048) and at the long run's
    shape (band 512, L = 32,768) on a slice of the timed batch, K3/K4 at
    the runs' mean launch sizes against their launch at the table shape;
+   MAM correction's consensus chain (vote and correction, ``phase_check_
+   consensus``) on every output, the rows up to their length, at a
+   targeted round's and a long round's shape (``CONSENSUS_SHAPES``),
+   timed, its plain version on the CPU;
    then ``phase_engine_routes``, the engine's host route (the CPU's, which
    the card never takes) against the card's kernels, every entry equal:
    (a) ``native.myers_ed_batch_k`` against K1 at the full window on the
@@ -449,6 +453,69 @@ def affine_pairs(np, B, L, seed=2, offsets=(128, 256)):
         ql[b] = a.size
         tl[b] = o.size
     return q, t, ql, tl
+
+
+# MAM correction's rounds: a targeted one (one partition an isoform of
+# targeted_ccs, 26 of 77 rows at 1,300 bases, 1% noise) and a long one
+# (mtdna_hifi's four molecules, 4 of 125 rows at 16,569 and 11,592 bases,
+# 0.2% noise): (center lengths, rows a partition, noise)
+CONSENSUS_SHAPES = {"targeted": ((1300,) * 26, 77, 0.01),
+                    "long": ((16569, 16569, 11592, 11592), 125, 0.002)}
+
+
+def star_partition(np, rs, L, K, noise, degrees=(1,), hotspots=0):
+    """A seeded star partition: (center, {s: (ed, m_aln, s_aln, degree)})
+    with the center itself as (0, m, m, degree).  The center is L random
+    bases; each of the other K - 1 rows is the center with edits at rate
+    ``noise`` (0.4 substitution, 0.3 insertion, 0.3 deletion), given as its
+    alignment to the center (an insertion before its base).  ``hotspots``
+    slots take 1-3 random inserted bases in each member with probability
+    1/2, so their insertions differ and the MAM widens there.  Degrees are
+    drawn from ``degrees``; a member equal to an earlier one is dropped."""
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    dash = np.uint8(ord("-"))
+    codes = rs.integers(0, 4, L)
+    center = letters[codes]
+    m = center.tobytes().decode()
+    part = {m: (0, m, m, int(rs.choice(degrees)))}
+    spots = rs.choice(L, size=min(hotspots, L), replace=False)
+    for _ in range(K - 1):
+        kind = rs.choice(4, size=L, p=[1 - noise, 0.4 * noise, 0.3 * noise,
+                                       0.3 * noise])
+        ins = (kind == 2).astype(np.int64)
+        ins[spots] += rs.integers(1, 4, spots.size) * (
+            rs.random(spots.size) < 0.5)
+        idx = np.repeat(np.arange(L), 1 + ins)
+        last = np.r_[idx[1:] != idx[:-1], True]    # the base's own column
+        sub = letters[(codes + rs.integers(1, 4, L)) % 4]
+        base = np.where(kind == 1, sub, np.where(kind == 3, dash, center))
+        m_aln = np.where(last, center[idx], dash)
+        s_aln = np.where(last, base[idx],
+                         letters[rs.integers(0, 4, idx.size)])
+        s = s_aln[s_aln != dash].tobytes().decode()
+        if not s or s in part:
+            continue
+        ed = int((kind == 1).sum() + (kind == 3).sum() + ins.sum())
+        part[s] = (ed, m_aln.tobytes().decode(), s_aln.tobytes().decode(),
+                   int(rs.choice(degrees)))
+    return m, part
+
+
+def consensus_round_inputs(np, shape, seed=6):
+    """``CONSENSUS_SHAPES[shape]`` as ``correct/dense.py::pack_round``
+    packs it: (mat, part, deg, rows).  One member in ten has degree 2 (a
+    converged one); a slot in 500 is an insertion hotspot."""
+    from isocon_tpu_torch.correct.dense import build_dense_mam, pack_round
+
+    lengths, K, noise = CONSENSUS_SHAPES[shape]
+    rs = np.random.default_rng(seed)
+    parts = []
+    for L in lengths:
+        m, part = star_partition(np, rs, L, K, noise,
+                                 degrees=(1,) * 9 + (2,),
+                                 hotspots=L // 500)
+        parts.append(build_dense_mam(m, part))
+    return pack_round(parts)
 
 
 def _edge_lengths(ql, tl, L):
@@ -932,6 +999,60 @@ def phase_check_sketch(torch, np, sk, dev, real):
                                .any(dim=1).sum()), nseg, t1 - t0, t2 - t1))
     torch.cuda.empty_cache()
     return errs, want
+
+
+def check_consensus(torch, name, got, want):
+    """The chain's outputs against the plain version's, exact: the columns'
+    counts, majorities and flags, the partitions' error counts, the rows'
+    lengths and mismatches, and each row's bytes up to its length."""
+    err = check_equal(name, [g.cpu() for g in got[:4] + got[5:]],
+                      list(want[:4] + want[5:]))
+    lens = want[5].long()
+    inside = torch.arange(want[4].shape[1])[None, :] < lens[:, None]
+    return max(err, check_equal(name + " rows", [got[4].cpu()[inside]],
+                                [want[4][inside]]))
+
+
+def time_consensus(torch, np, cons, dev, packed, reps=5):
+    """The consensus chain (both launches) on ``packed`` (a round as
+    ``pack_round`` gives it) on the card, mean ms of ``reps`` chains after
+    a warm-up (CUDA events), and its plain version on the CPU once; the
+    chain held to the plain version.  Returns (ms, plain ms, the bytes a
+    chain must read: the MAMs once, max abs err)."""
+    flat, table, deg, rows = (torch.from_numpy(a) for a in packed)
+    kw = dict(cols=int(table[:, 2].sum()), width=int(table[:, 2].max()))
+    args = [a.to(dev) for a in (flat, table, deg, rows)]
+    cons.consensus_cuda(*args, **kw)
+    ms, got = _time(torch, lambda: cons.consensus_cuda(*args, **kw), reps)
+    t0 = time.perf_counter()
+    want = cons.consensus_plain(flat, table, deg, rows, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    shape = "P %d, rows %d (%d to correct), W %d-%d, %d mismatches" % (
+        table.shape[0], deg.numel(), rows.shape[1], int(table[:, 2].min()),
+        kw["width"], int(want[6].sum()))
+    err = check_consensus(torch, "consensus " + shape, got, want)
+    return ms, plain_ms, int(flat.numel()), err, shape
+
+
+def phase_check_consensus(torch, np, cons, dev, clock_mhz):
+    """The consensus chain against its plain version at a targeted round's
+    shape and a long round's (``CONSENSUS_SHAPES``), timed; returns the
+    targeted round's reading for the kernels line, and the max abs err."""
+    reading, err = None, 0
+    for name in ("targeted", "long"):
+        ms, plain_ms, nbytes, e, shape = time_consensus(
+            torch, np, cons, dev, consensus_round_inputs(np, name))
+        err = max(err, e)
+        bms, by = bound_ms(nbytes, 0, clock_mhz)
+        log("consensus chain, %s round (%s): equal to the plain version on "
+            "every output; chain %.3f ms, plain (CPU) %.1f ms, bound %.4f ms "
+            "(%s), %.1fx the bound" % (name, shape, ms, plain_ms, bms, by,
+                                        ms / bms))
+        if reading is None:
+            reading = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by, shape=shape)
+    torch.cuda.empty_cache()
+    return reading, err
 
 
 # ---------------------------------------------------------------------------
@@ -1420,6 +1541,10 @@ def phase_main_path(torch, _build, dev, long_reads=False,
     for name in needed:
         if launches[name] <= 0:
             raise AssertionError("%s: kernel %s was not launched"
+                                 % (label, name))
+    for name in ("consensus_vote", "consensus_correct"):    # MAM rounds
+        if launches1[name] <= 0:
+            raise AssertionError("%s: kernel %s was not launched in phase 1"
                                  % (label, name))
     if nontargeted and launches1["sketch_topn"] <= 0:
         raise AssertionError("%s: K6 was not launched in phase 1" % label)
@@ -2470,6 +2595,10 @@ KERNELS = [
      "isocon_tpu/graph/sketch.py:62"),
     ("sketch_scores", "isocon_tpu_torch/csrc/sketch.cu",
      "isocon_tpu/graph/sketch.py:56"),
+    # MAM vote and correction, host numpy in the JAX package: the chain of
+    # both kernels, under the first one's name and launches
+    ("consensus_vote", "isocon_tpu_torch/csrc/consensus.cu",
+     "isocon_tpu/correct/dense.py:128"),
 ]
 
 
@@ -2499,6 +2628,7 @@ def main() -> None:
                                       wavefront)
     from isocon_tpu_torch.ops import sketch as sk
     from isocon_tpu_torch.ops import affine_cuda as acu
+    from isocon_tpu_torch.ops import consensus as cons
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2517,9 +2647,12 @@ def main() -> None:
     # kept on the host while the pipelines run (their peak memory is read)
     real, real_plain = tuple(x.cpu() for x in real), real_plain.cpu()
     torch.cuda.empty_cache()
+    consensus_reading, err7 = phase_check_consensus(torch, np, cons, dev,
+                                                    clock_mhz)
     phase_engine_routes(torch, np, myers, wavefront, native, dev)
     errs = {"myers_ed": err1, "myers_hw": err2, "affine_fwd": err3,
-            "affine_walk": err4, "wavefront_ed": err5, **errs6}
+            "affine_walk": err4, "wavefront_ed": err5, **errs6,
+            "consensus_vote": err7}
     # each path sets the counts to 0 just before it runs (comparison
     # launches do not count); K5's count is the long-read run's, K6's the
     # nontargeted run's (its scores entry is for checking: 0 there)
@@ -2535,6 +2668,7 @@ def main() -> None:
         errs[kname] = max(errs[kname], err)
     timing, timing_errs = phase_timing(torch, np, myers, affine, acu,
                                        wavefront, dev, clock_mhz)
+    timing["consensus_vote"] = consensus_reading
     for kname, err in timing_errs.items():
         errs[kname] = max(errs[kname], err)
     # K2 at the main path's own launches (the 10k run's static graph): the

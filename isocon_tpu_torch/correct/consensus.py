@@ -18,6 +18,9 @@ from __future__ import annotations
 import math
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
+from .dense import build_dense_mam, check_round_trip, correct_round
 from .mam import create_multialignment_matrix, create_position_frequency_matrix
 
 
@@ -27,6 +30,7 @@ def correct_strings(
     step: int,
     verbose: bool = False,
     ccs_dict: Optional[Dict[str, object]] = None,
+    engine=None,
 ) -> Tuple[Dict[str, str], Dict[str, list]]:
     """Correct every partition; returns ({accession: corrected sequence},
     {accession: corrected quality vector}).
@@ -34,9 +38,23 @@ def correct_strings(
     partition_alignments: {center m: {s: (ed, m_aln, s_aln, degree)}}
     (the center itself appears as (0, m, m, selfdegree)).  When ccs_dict is
     given, the quality-weighted variant is used
-    (``correct_to_consensus_helper``, ``correction_module.py:78-84``).
+    (``correct_to_consensus_helper``, ``correction_module.py:78-84``), on
+    the host.  Otherwise a partition of more than one member and a support
+    above 2 is dense: the host builds its MAM (``dense.build_dense_mam``)
+    and the round's dense partitions are voted on and corrected at once
+    (``dense.correct_round``) on ``engine``'s device, the CPU without one;
+    the others go to ``_correct_to_consensus_oracle``, which corrects
+    nothing there.  The engine's counters ``consensus_rows_card`` and
+    ``consensus_rows_host`` count the member rows of the dense partitions
+    and those of the host's partitions of more than one member.
     """
-    s_prime: Dict[str, str] = {}
+    counters = engine.counters if engine is not None else None
+    device = engine.device if engine is not None else torch.device("cpu")
+    host_rows = 0
+    # per partition in center order: its corrections, or its dense index
+    done: List[object] = []
+    dense: List[tuple] = []
+    dense_s2a: List[Dict[str, List[str]]] = []
     s_prime_qual: Dict[str, list] = {}
     for m in sorted(partition_alignments):
         partition = partition_alignments[m]
@@ -46,6 +64,7 @@ def correct_strings(
         for s in partition:
             if s in seq_to_acc:
                 part_seq_to_acc[s] = seq_to_acc[s]
+        N_t = sum(t[3] for t in partition.values())
         if ccs_dict:
             part_ccs = {
                 acc: ccs_dict[acc]
@@ -57,15 +76,33 @@ def correct_strings(
             corrected, quals = correct_to_consensus_ccs_qual(
                 m, partition, part_seq_to_acc, step, part_ccs
             )
+            s_prime_qual.update(quals)
+        elif len(partition) > 1 and N_t > 2:
+            accs, mat, degs = build_dense_mam(m, partition)
+            check_round_trip(accs, mat)
+            dense.append((accs, mat, degs))
+            dense_s2a.append(part_seq_to_acc)
+            done.append(len(dense) - 1)
+            continue
         else:
-            corrected = correct_to_consensus(m, partition, part_seq_to_acc,
-                                             step, verbose)
-            quals = {}
+            corrected = _correct_to_consensus_oracle(
+                m, partition, part_seq_to_acc, step, verbose)
+        if len(partition) > 1:
+            host_rows += len(partition)
+        done.append(corrected)
+    if counters is not None:
+        counters["consensus_rows_host"] += host_rows
+
+    fixed = correct_round(dense, device, counters)
+    s_prime: Dict[str, str] = {}
+    for corrected in done:
+        if isinstance(corrected, int):
+            s2a = dense_s2a[corrected]
+            corrected = {acc: t for s, t in fixed[corrected].items()
+                         for acc in s2a[s]}
         for acc, s in corrected.items():
             assert acc not in s_prime
             s_prime[acc] = s
-        for acc, qv in quals.items():
-            s_prime_qual[acc] = qv
     return s_prime, s_prime_qual
 
 
@@ -175,28 +212,6 @@ def correct_to_consensus_ccs_qual(
             s_prime[acc] = s_modified
             s_prime_qual[acc] = qual_modified
     return s_prime, s_prime_qual
-
-
-def correct_to_consensus(
-    m: str,
-    partition: Dict[str, Tuple[int, str, str, int]],
-    seq_to_acc: Dict[str, List[str]],
-    step: int,
-    verbose: bool = False,
-) -> Dict[str, str]:
-    """Dispatches to the dense numpy implementation (``correct/dense.py``);
-    ISOCON_NO_DENSE=1 forces this per-string reference implementation,
-    which doubles as the property-test oracle."""
-    import os
-
-    N_t = sum(t[3] for t in partition.values())
-    if (len(partition) > 1 and N_t > 2
-            and not os.environ.get("ISOCON_NO_DENSE")):
-        from .dense import correct_to_consensus_dense
-
-        return correct_to_consensus_dense(m, partition, seq_to_acc)
-    return _correct_to_consensus_oracle(m, partition, seq_to_acc, step,
-                                        verbose)
 
 
 def _correct_to_consensus_oracle(

@@ -1,12 +1,13 @@
-"""Dense (numpy) multi-alignment matrix + consensus correction.
+"""Dense (numpy) multi-alignment matrices, and a round's correction.
 
-The production path for ``correct_to_consensus``: the same star-MAM
-construction, PFM and ceil(0.5 * minority) type-normalized correction as
-``mam.py`` / ``consensus.py`` (the per-string reference implementation,
-kept as the oracle -- see tests/test_mam.py property tests), built as flat
-uint8 code matrices with vectorized column math instead of per-character
-Python loops (SURVEY.md sec 7 step 5; reference
-``correction_module.py:260-446``, ``functions.py:526-767``).
+The production path of ``correct_strings``: the same star MAM as
+``mam.py`` (the per-string reference implementation, kept as the oracle)
+built as flat uint8 byte matrices instead of per-character Python loops
+(SURVEY.md sec 7 step 5; reference ``functions.py:526-767``).  A round's
+MAMs are then voted on and corrected all at once by
+``ops/consensus.py::consensus_round`` (the PFM and the ceil(0.5 *
+minority) type-normalized correction of ``correction_module.py:260-446``),
+on the engine's card, or by its plain version on the CPU.
 
 Layout: the MAM of a partition of K rows against center m of length L is
 a [K, W] uint8 byte matrix.  Columns interleave the 2L+1 reference slots
@@ -16,24 +17,22 @@ width of their longest unique insertion (+2 flanking dashes) exactly as
 placement rules for the (few) non-trivial insertion strings.
 
 Exactness: integer PFM counts are identical; correction ratios use the
-same float64 divisions; sorting is stable with columns ascending, so the
-tie-extension cut matches the reference decision-for-decision.
+same float64 divisions; the cut takes every mismatch whose ratio is at
+most the ceil(n / 2)-th smallest, which is the reference's stable sort
+extended through ties, decision for decision.
 """
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..ops.consensus import consensus_round, fetch
+from ..parallel import sharding
 from .mam import _best_solution
 
 _DASH = np.uint8(ord("-"))
-# PFM channel order "ACGT-" (matches mam.create_position_frequency_matrix)
-_CODE = np.full(256, 4, dtype=np.int8)
-for _i, _c in enumerate("ACGT"):
-    _CODE[ord(_c)] = _i
-_CHAN = np.frombuffer(b"ACGT-", dtype=np.uint8)
 
 
 def _row_bytes(s: str) -> np.ndarray:
@@ -113,82 +112,79 @@ def build_dense_mam(
     return accs, out, degs
 
 
-def dense_pfm(mat: np.ndarray, degs: np.ndarray) -> np.ndarray:
-    """Degree-weighted [W, 5] counts in channel order A,C,G,T,'-'."""
-    K, W = mat.shape
-    idx = _CODE[mat].astype(np.int64)       # [K, W] in 0..4
-    flat = idx + np.arange(W, dtype=np.int64) * 5
-    counts = np.bincount(
-        flat.ravel(), weights=np.repeat(degs.astype(np.float64), W),
-        minlength=W * 5,
-    )
-    return counts.reshape(W, 5).astype(np.int64)
+def check_round_trip(accs: List[str], mat: np.ndarray) -> None:
+    """Each row of the MAM, '-' bytes removed, is its own member
+    (``correction_module.py:273-275``): each row's count of other bytes is
+    its member's length, and all of them in order are the members joined."""
+    keep = mat != _DASH
+    lens = np.fromiter(map(len, accs), dtype=np.int64, count=len(accs))
+    assert np.array_equal(keep.sum(axis=1), lens)
+    assert mat[keep].tobytes() == "".join(accs).encode("latin1")
 
 
-def correct_to_consensus_dense(
-    m: str,
-    partition: Dict[str, Tuple[int, str, str, int]],
-    seq_to_acc: Dict[str, List[str]],
-) -> Dict[str, str]:
-    """Vectorized ``correct_to_consensus`` (``correction_module.py:260-
-    446``); dispatched by ``consensus.correct_to_consensus``."""
-    s_prime: Dict[str, str] = {}
-    accs, mat, degs = build_dense_mam(m, partition)
-    # round-trip invariant (correction_module.py:273-275)
-    for k, s_before in enumerate(accs):
-        row = mat[k]
-        assert row[row != _DASH].tobytes().decode("latin1") == s_before
+def pack_round(
+    parts: Sequence[Tuple[List[str], np.ndarray, np.ndarray]],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """A round's dense partitions in ``ops/consensus.py``'s layout.
 
-    counts = dense_pfm(mat, degs)           # [W, 5]
-    W = counts.shape[0]
-    maxc = counts.max(axis=1)
-    n_max = (counts == maxc[:, None]).sum(axis=1)
-    unamb = n_max == 1
-    # among "ACGT-": argmax picks the first (lexicographically smallest is
-    # only needed for ambiguous columns, which are excluded everywhere)
-    maj = counts.argmax(axis=1)
-    tot = counts.sum(axis=1)
-    maj_dash = maj == 4
-    other = tot - maxc
-    c_ins = int(other[unamb & maj_dash].sum())
-    dash_cnt = counts[:, 4]
-    sel = unamb & ~maj_dash
-    c_del = int(dash_cnt[sel].sum())
-    c_subs = int((other[sel] - dash_cnt[sel]).sum())
+    ``parts``: each partition's ``build_dense_mam`` (members, MAM,
+    degrees).  Returns (mat uint8 [N], part int64 [P, 5], deg int64, rows
+    int64 [2, R]): the rows to correct are the members of degree 1 (a
+    converged member is never corrected, ``correction_module.py:316-317``).
+    """
+    P = len(parts)
+    table = np.zeros((P, 5), dtype=np.int64)
+    fix_rows, fix_parts = [], []
+    base = row0 = col0 = 0
+    for p, (_accs, mat, degs) in enumerate(parts):
+        K, W = mat.shape
+        table[p] = (base, K, W, row0, col0)
+        fix = np.flatnonzero(degs <= 1)
+        fix_rows.append(fix + row0)
+        fix_parts.append(np.full(fix.size, p, dtype=np.int64))
+        base += K * W
+        row0 += K
+        col0 += W
+    flat = np.concatenate([mat.ravel() for _a, mat, _d in parts])
+    deg = np.concatenate([d for _a, _m, d in parts]).astype(np.int64)
+    rows = np.stack([np.concatenate(fix_rows), np.concatenate(fix_parts)])
+    return flat, table, deg, rows
 
-    idx = _CODE[mat].astype(np.int64)       # [K, W]
-    cols = np.arange(W, dtype=np.int64)
-    norm_ins = float(max(c_ins, 1))
-    norm_del = float(max(c_del, 1))
-    norm_subs = float(max(c_subs, 1))
 
-    for k, s in enumerate(accs):
-        if partition[s][3] > 1:
-            continue  # converged member: never corrected (:316-317)
-        row_idx = idx[k]
-        mism = unamb & (row_idx != maj)
-        nr_pos = int(math.ceil(int(mism.sum()) * 0.5))
-        if nr_pos == 0:
-            continue
-        jj = cols[mism]
-        vcnt = counts[jj, row_idx[jj]].astype(np.float64)
-        mdash = maj_dash[jj]
-        vdash = row_idx[jj] == 4
-        norm = np.where(mdash, norm_ins, np.where(vdash, norm_del,
-                                                  norm_subs))
-        freqs = vcnt / norm
-        order = np.argsort(freqs, kind="stable")  # ties stay j-ascending
-        if len(order) < nr_pos:
-            end = len(order)
-        else:
-            cutoff = freqs[order[nr_pos - 1]]
-            end = nr_pos + int(
-                (freqs[order[nr_pos:]] <= cutoff).cumprod().sum()
-            )
-        chosen = jj[order[:end]]
-        new_row = mat[k].copy()
-        new_row[chosen] = _CHAN[maj[chosen]]
-        s_modified = new_row[new_row != _DASH].tobytes().decode("latin1")
-        for acc in seq_to_acc[s]:
-            s_prime[acc] = s_modified
-    return s_prime
+def correct_round(
+    parts: Sequence[Tuple[List[str], np.ndarray, np.ndarray]],
+    device: torch.device,
+    counters: Optional[dict] = None,
+) -> List[Dict[str, str]]:
+    """Vote and correct a round's dense partitions at once.
+
+    ``parts``: each partition's ``build_dense_mam`` (members, MAM,
+    degrees).  ``pack_round``'s MAM buffer goes to ``device`` in one copy,
+    and its table, degrees and rows in one int64 buffer; the corrected rows
+    come back in one copy and one latin-1 decode.  Returns, for each
+    partition, {member: corrected string} of its corrected members.
+    ``counters``: the engine's, whose ``upload_bytes`` counts both buffers
+    and ``consensus_rows_card`` the rows voted on."""
+    if not parts:
+        return []
+    flat, table, deg, rows = pack_round(parts)
+    P, K = table.shape[0], deg.size
+    meta = np.concatenate([table.ravel(), deg, rows.ravel()])
+    mat_d = sharding.upload(flat, device)
+    meta_d = sharding.upload(meta, device)
+    if counters is not None:
+        counters["upload_bytes"] += flat.nbytes + meta.nbytes
+        counters["consensus_rows_card"] += K
+    outs = consensus_round(
+        mat_d, meta_d[:5 * P].view(P, 5), meta_d[5 * P:5 * P + K],
+        meta_d[5 * P + K:].view(2, -1), cols=int(table[:, 2].sum()),
+        width=int(table[:, 2].max()))
+    lens, nmis, fixed = fetch(outs)
+    A = fixed.shape[1]
+    text = fixed.tobytes().decode("latin-1")
+    corrected: List[Dict[str, str]] = [{} for _ in parts]
+    for i in np.flatnonzero(nmis > 0).tolist():
+        r, p = int(rows[0, i]), int(rows[1, i])
+        member = parts[p][0][r - int(table[p, 3])]
+        corrected[p][member] = text[i * A:i * A + int(lens[i])]
+    return corrected

@@ -327,6 +327,11 @@ class PairEngine:
             # ``parallel.sharding.upload`` (pool rows and lengths, index and
             # score vectors; never the sharder's padding)
             "fetch_bytes": 0, "upload_bytes": 0,
+            # MAM correction's member rows: those of the dense partitions,
+            # which the consensus chain votes on (``correct.dense.
+            # correct_round``), and those of the other partitions of more
+            # than one member, which the host takes
+            "consensus_rows_card": 0, "consensus_rows_host": 0,
         }
 
         # (mode, band width) -> pairs the banded wavefront ran there
@@ -341,12 +346,13 @@ class PairEngine:
             "engine: %d EDs in %.1fs (%d calls, %d full-window, "
             "%d wavefront, %d of them reruns, %.1fs of wavefront waits), "
             "%d alignments in %.1fs (%d calls; %d card rows, "
-            "%d host rows)" % (
+            "%d host rows); MAM rows: %d consensus chain, %d host" % (
                 c["ed_pairs"], c["ed_seconds"], c["ed_calls"],
                 c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
                 c["wave_pairs_rerun"], c["wave_wait_seconds"],
                 c["align_pairs"], c["align_seconds"], c["align_calls"],
                 c["align_card_rows"], c["align_host_rows"],
+                c["consensus_rows_card"], c["consensus_rows_host"],
             )
         )
 

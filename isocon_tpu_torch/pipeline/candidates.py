@@ -196,7 +196,7 @@ def find_candidate_transcripts(read_file: str, params, engine):
         with record_function("isocon_phase1.correct"):
             S_prime, _S_prime_qual = correct_strings(
                 partition_alignments, seq_to_acc, step,
-                verbose=params.verbose
+                verbose=params.verbose, engine=engine
             )
         for acc, s_prime in S_prime.items():
             S[acc] = s_prime

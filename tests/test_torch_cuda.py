@@ -70,13 +70,14 @@ def test_build_table_lists_every_kernel():
     import os
 
     assert _build.SOURCES == ("myers_ed", "affine_sg", "wavefront_ed",
-                              "sketch")
+                              "sketch", "consensus")
     for name in _build.SOURCES:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
     assert set(_build._SIGNATURES) == {
         "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
         "isocon_affine_walk", "isocon_wavefront_ed", "isocon_sketch_scores",
-        "isocon_sketch_topn", "isocon_sketch_merge"}
+        "isocon_sketch_topn", "isocon_sketch_merge",
+        "isocon_consensus_vote", "isocon_consensus_correct"}
     assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
     assert len(_build._SIGNATURES["isocon_sketch_scores"]) == 11
     assert len(_build._SIGNATURES["isocon_sketch_topn"]) == 10
@@ -89,10 +90,17 @@ def test_build_table_lists_every_kernel():
     assert len(_build._SIGNATURES["isocon_affine_walk"]) == 25
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
         assert "ISOCON_API int isocon_wavefront_ed(" in fh.read()
+    with open(os.path.join(_build.CSRC, "consensus.cu")) as fh:
+        src = fh.read()
+    for entry in ("vote", "correct"):
+        assert "ISOCON_API int isocon_consensus_%s(" % entry in src
+    assert len(_build._SIGNATURES["isocon_consensus_vote"]) == 10
+    assert len(_build._SIGNATURES["isocon_consensus_correct"]) == 13
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
                                     "affine_walk", "wavefront_ed",
                                     "sketch_scores", "sketch_topn",
-                                    "sketch_merge"}
+                                    "sketch_merge", "consensus_vote",
+                                    "consensus_correct"}
     _build.LAUNCHES["wavefront_ed"] += 1
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
@@ -1304,3 +1312,90 @@ def test_engine_on_card_launches_before_collecting(monkeypatch):
     ib[:] = 99
     np.testing.assert_array_equal(gpu.sharder.collect(batch)[0],
                                   2 * np.arange(5))
+
+
+def _consensus_round(name):
+    """A packed MAM round (``correct/dense.py::pack_round``): the smoke's
+    targeted and long rounds; ``wide``, a row that mismatches at every one
+    of 33,000 columns (two freqs: its '-' bytes are of the deletion type,
+    its letters of the substitution type) and one at every second column;
+    ``mixed``, seeded stars of many sizes, noise up to 12% (ambiguous
+    columns), converged members and insertion hotspots."""
+    import chip_smoke
+    from isocon_tpu_torch.correct.dense import build_dense_mam, pack_round
+
+    if name in chip_smoke.CONSENSUS_SHAPES:
+        return chip_smoke.consensus_round_inputs(np, name)
+    rs = np.random.default_rng(9)
+    if name == "wide":
+        W, K = 33000, 8
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        codes = rs.integers(0, 4, W)
+        mat = np.tile(acgt[codes], (K, 1))
+        other = np.frombuffer(b"ACGT-", np.uint8)[
+            (codes + rs.integers(1, 5, W)) % 5]
+        mat[6] = other
+        half = rs.random(W) < 0.5
+        mat[7, half] = other[half]
+        return (mat.ravel(), np.array([[0, K, W, 0, 0]], np.int64),
+                np.ones(K, np.int64),
+                np.stack([np.arange(K), np.zeros(K, np.int64)]))
+    parts = []
+    for L, K, noise in ((60, 3, 0.1), (300, 12, 0.12), (900, 40, 0.02),
+                        (2000, 25, 0.01), (150, 6, 0.05), (5000, 9, 0.004)):
+        m, part = chip_smoke.star_partition(np, rs, L, K, noise,
+                                            degrees=(1, 1, 2, 3),
+                                            hotspots=L // 40)
+        parts.append(build_dense_mam(m, part))
+    return pack_round(parts)
+
+
+@pytest.mark.parametrize("name", ["targeted", "long", "wide", "mixed"])
+def test_consensus_kernels_match_plain(name):
+    """The consensus chain (vote, then correction) equals its plain
+    version on every output, the rows up to their length."""
+    import chip_smoke
+    from isocon_tpu_torch.ops import consensus as cons
+
+    dev = _card()
+    flat, table, deg, rows = (torch.from_numpy(a)
+                              for a in _consensus_round(name))
+    kw = dict(cols=int(table[:, 2].sum()), width=int(table[:, 2].max()))
+    got = cons.consensus_cuda(*(a.to(dev) for a in (flat, table, deg, rows)),
+                              **kw)
+    want = cons.consensus_plain(flat, table, deg, rows, **kw)
+    chip_smoke.check_consensus(torch, name, got, want)
+    if name == "wide":
+        assert int(want[6][6]) == kw["width"]
+    if name == "mixed":
+        assert (want[2] == 0).any() and (deg > 1).any()
+
+
+def test_correct_strings_on_the_card_launches_the_chain():
+    """MAM correction with a card engine: one vote and one correction
+    launch a round, and the CPU's corrections."""
+    import chip_smoke
+    from isocon_tpu_torch.correct.consensus import correct_strings
+
+    _card()
+    rs = np.random.default_rng(4)
+    pa, s2a = {}, {}
+    for L, K, noise, degrees in ((1300, 81, 0.01, (1, 1, 2)),
+                                 (400, 2, 0.02, (1,)), (300, 1, 0.0, (1,)),
+                                 (16569, 20, 0.002, (1,))):
+        m, part = chip_smoke.star_partition(np, rs, L, K, noise,
+                                            degrees=degrees, hotspots=3)
+        pa[m] = part
+    for s in (s for part in pa.values() for s in part):
+        s2a[s] = ["r%d" % len(s2a)]
+    engine = PairEngine(device="cuda")
+    _build.reset_launches()
+    got = correct_strings(pa, s2a, 1, engine=engine)
+    assert _build.LAUNCHES["consensus_vote"] == 1
+    assert _build.LAUNCHES["consensus_correct"] == 1
+    assert got == correct_strings(pa, s2a, 1)
+    assert got[0]
+    assert engine.counters["consensus_rows_card"] == sum(
+        len(p) for p in pa.values()
+        if len(p) > 1 and sum(t[3] for t in p.values()) > 2)
+    assert engine.counters["consensus_rows_host"] == 2

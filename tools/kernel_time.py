@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time K1 / K2 (the banded Myers NW / HW edit distance), K3 (the affine
-forward), K4 (its traceback walk), K5 (the banded wavefront) or K6 (the
-sketch scores' top-20) of one tree of the port on the card.
+forward), K4 (its traceback walk), K5 (the banded wavefront), K6 (the
+sketch scores' top-20) or the consensus chain (MAM vote and correction) of
+one tree of the port on the card.
 
 K1 (``--kernel k1``): on ``chip_smoke.myers_batch``'s pairs (L = 2048) at
 win 7 for 262,144 pairs (the engine's ED chunk and the table's shape),
@@ -29,6 +30,11 @@ launch size choose, as the main path does).  K4 (``--kernel k4``): at the
 same shapes, K3 runs once for the direction bytes and only K4 is timed,
 with its epilogue, the aligned rows, as the main path launches it
 ("walk+rows"; a tree whose K4 writes no rows: the walk, "walk").
+The consensus chain (``--kernel consensus``): MAM correction's vote and
+correction kernels on ``chip_smoke.consensus_round_inputs``' targeted and
+long rounds (``chip_smoke.CONSENSUS_SHAPES``), both launches, then the vote
+alone (the same round with no row to correct), held to the plain version
+(``chip_smoke.time_consensus``); its bound is the MAM bytes read once.
 K6 (``--kernel k6``): the tree's ``ops/sketch.py::topn_indices``,
 the top-20 of the sketch scores as its main path computes them, on the
 first round's profiles of the nontargeted run
@@ -92,6 +98,20 @@ def static_graph(np, path):
 def readings(cs, torch, np, dev, args):
     """(label, ms, bytes, operations, chain steps, shape) of each timed
     call."""
+    if args.kernel == "consensus":
+        from isocon_tpu_torch.ops import consensus
+
+        for name in ("targeted", "long"):
+            packed = cs.consensus_round_inputs(np, name)
+            ms, _plain_ms, nbytes, _err, shape = cs.time_consensus(
+                torch, np, consensus, dev, packed)
+            yield "chain %s" % name, ms, nbytes, 0, 0, shape
+            # the vote alone: the same round with no row to correct
+            flat, table, deg, rows = packed
+            ms, _plain_ms, nbytes, _err, shape = cs.time_consensus(
+                torch, np, consensus, dev, (flat, table, deg, rows[:, :0]))
+            yield "vote %s" % name, ms, nbytes, 0, 0, shape
+        return
     if args.kernel == "k6":
         from isocon_tpu_torch.ops import _build, sketch
 
@@ -197,7 +217,8 @@ def readings(cs, torch, np, dev, args):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6"),
+    ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6",
+                                         "consensus"),
                     required=True)
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--wp", type=int, nargs="+",
