@@ -1,8 +1,9 @@
 // Banded infix (edlib-HW-mode) unit-cost alignment with traceback.
 //
-// Host implementation of ops/oracle.py:edit_distance_hw_banded -- the
-// per-survivor traceback of the ends-ignored candidate graph
-// (end_invariant_functions.py:593-621 in the reference).  The batched HW
+// Host implementation of isocon_tpu/ops/oracle.py:edit_distance_hw_banded
+// (the JAX package's numpy oracle) -- the per-survivor traceback of the
+// ends-ignored candidate graph (end_invariant_functions.py:593-621 in the
+// reference).  The batched HW
 // Myers kernel (K2, csrc/myers_ed.cu) computes the distances with a
 // cutoff; only the pairs under the cutoff need the target span + op
 // string for the end adjustments, and that walk is latency-bound host

@@ -1,6 +1,6 @@
 """Banded affine-gap semi-global alignment with traceback: constants, the
-plain PyTorch versions of the forward DP (K3) and the traceback walk (K4),
-and the host decode of their opcodes.
+plain PyTorch versions of the forward DP (K3), the traceback walk (K4) and
+K4's epilogue (the aligned rows), and the host respelling of those rows.
 
 Counterpart of ``isocon_tpu/ops/affine.py`` (``banded_sg_align``,
 ``walk_traceback``) and of the compacted Pallas kernels in
@@ -32,7 +32,7 @@ int32 with every state floored at NEG after each step.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -240,7 +240,8 @@ def sg_rows_plain(ops: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
                   q: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
                   m: torch.Tensor, width: int):
     """Plain version of K4's epilogue: each walk's two aligned rows and its
-    counts, the strings ``ops_to_alignment_counts`` builds from the walk
+    counts, the strings the JAX package's ``ops_to_alignment_counts``
+    (``isocon_tpu/ops/affine.py``) builds from the walk
 
         a1 = "-" * fj + q[:fi] + mid1 + q[ei:] + "-" * (m - ej)
         a2 = t[:fj] + "-" * fi + mid2 + "-" * (n - ei) + t[ej:]
@@ -298,87 +299,14 @@ def sg_rows_plain(ops: torch.Tensor, ei: torch.Tensor, ej: torch.Tensor,
 _DASH = np.uint8(ord("-"))
 
 
-def ops_to_alignment(opcodes, q: str, t: str, end_i: int, end_j: int,
-                     stop_i: int, stop_j: int) -> Tuple[str, str]:
-    """Host assembly of the aligned strings from backward opcodes
-    (vectorized -- this runs once per aligned pair)."""
-    ops = np.asarray(opcodes)
-    # the scan walk packs opcodes contiguously; the pallas walk is
-    # diagonal-aligned and leaves OP_NONE gaps after each diagonal move
-    ops = ops[ops != OP_NONE][::-1]  # forward order, stop -> end
-    consq = ops != OP_GAPQ           # consumes a q char
-    const = ops != OP_GAPT           # consumes a t char
-    nq = int(consq.sum())
-    nt = int(const.sum())
-    assert (stop_i + nq, stop_j + nt) == (end_i, end_j), (
-        stop_i, nq, stop_j, nt, end_i, end_j,
-    )
-    qa = np.frombuffer(q.encode("latin1"), dtype=np.uint8)
-    ta = np.frombuffer(t.encode("latin1"), dtype=np.uint8)
-    qi = stop_i + np.cumsum(consq) - 1
-    ti = stop_j + np.cumsum(const) - 1
-    if len(ops):
-        m1 = np.where(consq, qa[np.minimum(qi, len(qa) - 1)], _DASH)
-        m2 = np.where(const, ta[np.minimum(ti, len(ta) - 1)], _DASH)
-        mid1 = m1.tobytes().decode("latin1")
-        mid2 = m2.tobytes().decode("latin1")
-    else:
-        mid1 = mid2 = ""
-    t1 = q[end_i:]
-    t2 = t[end_j:]
-    a1 = "-" * stop_j + q[:stop_i] + mid1 + t1 + "-" * len(t2)
-    a2 = t[:stop_j] + "-" * stop_i + mid2 + "-" * len(t1) + t2
-    return a1, a2
-
-
-def ops_to_alignment_counts(opcodes, q: str, t: str, end_i: int, end_j: int,
-                            stop_i: int, stop_j: int):
-    """``ops_to_alignment`` plus the reference's (matches, mismatches,
-    indels) triple (``SW_alignment_module.py:78-86``), with the counts
-    computed from the opcode vectors instead of a per-character Python
-    zip over the aligned strings -- that loop was ~half the host decode
-    cost of a large affine batch.  Matches/mismatches only occur in the
-    mid section (both end-gap regions pair a char against a dash)."""
-    ops = np.asarray(opcodes)
-    ops = ops[ops != OP_NONE][::-1]
-    consq = ops != OP_GAPQ
-    const = ops != OP_GAPT
-    nq = int(consq.sum())
-    nt = int(const.sum())
-    assert (stop_i + nq, stop_j + nt) == (end_i, end_j), (
-        stop_i, nq, stop_j, nt, end_i, end_j,
-    )
-    qa = np.frombuffer(q.encode("latin1"), dtype=np.uint8)
-    ta = np.frombuffer(t.encode("latin1"), dtype=np.uint8)
-    qi = stop_i + np.cumsum(consq) - 1
-    ti = stop_j + np.cumsum(const) - 1
-    if len(ops):
-        m1 = np.where(consq, qa[np.minimum(qi, len(qa) - 1)], _DASH)
-        m2 = np.where(const, ta[np.minimum(ti, len(ta) - 1)], _DASH)
-        both = consq & const
-        eq = m1 == m2
-        matches = int((both & eq).sum())
-        mismatches = int((both & ~eq).sum())
-        mid1 = m1.tobytes().decode("latin1")
-        mid2 = m2.tobytes().decode("latin1")
-    else:
-        mid1 = mid2 = ""
-        matches = mismatches = 0
-    t1 = q[end_i:]
-    t2 = t[end_j:]
-    a1 = "-" * stop_j + q[:stop_i] + mid1 + t1 + "-" * len(t2)
-    a2 = t[:stop_j] + "-" * stop_i + mid2 + "-" * len(t1) + t2
-    indels = len(a1) - matches - mismatches
-    return a1, a2, (matches, mismatches, indels)
-
-
 def respell_rows(a1: str, a2: str, q: str, t: str):
     """K4's aligned rows of q against t (``sg_rows_plain``'s) spelt with
-    q's and t's own letters, and the (matches, mismatches, indels) of
-    ``ops_to_alignment_counts``.  The rows' letters come from the base
-    codes, which do not give back lowercase or letters other than A, C, G,
-    T and N; a row's bytes other than its dashes are its sequence in
-    order, so each takes the sequence's bytes there."""
+    q's and t's own letters, and their (matches, mismatches, indels), the
+    reference's triple (``SW_alignment_module.py:78-86``).  The rows'
+    letters come from the base codes, which do not give back lowercase or
+    letters other than A, C, G, T and N; a row's bytes other than its
+    dashes are its sequence in order, so each takes the sequence's bytes
+    there."""
     r1 = np.frombuffer(a1.encode("latin1"), dtype=np.uint8)
     r2 = np.frombuffer(a2.encode("latin1"), dtype=np.uint8)
     u1 = r1 != _DASH
@@ -393,72 +321,3 @@ def respell_rows(a1: str, a2: str, q: str, t: str):
     mismatches = int((both & ~eq).sum())
     return (s1.tobytes().decode("latin1"), s2.tobytes().decode("latin1"),
             (matches, mismatches, len(a1) - matches - mismatches))
-
-
-def decode_traceback(
-    dirs: np.ndarray,
-    q: str,
-    t: str,
-    end_i: int,
-    end_j: int,
-    Wp: int,
-) -> Tuple[str, str]:
-    """Walk the packed direction bits from (end_i, end_j) back to a free
-    start, returning (q_aligned, t_aligned) with end gaps appended.
-
-    Raises BandOverflow if the path touches the outermost band lanes
-    (result then untrustworthy; caller should widen the band).
-    """
-    o_lo = -(Wp // 2 - 1)
-    n, m = len(q), len(t)
-    a1: List[str] = []
-    a2: List[str] = []
-    i, j = end_i, end_j
-    state = "H"
-    while i > 0 and j > 0:
-        d = i + j
-        c = (j - i) - o_lo
-        if c <= 0 or c >= Wp - 1:
-            raise BandOverflow((i, j, c))
-        bits = int(dirs[d - 2, c])
-        if state == "H":
-            hd = bits & 3
-            if hd == H_START:
-                break
-            if hd == H_DIAG:
-                a1.append(q[i - 1])
-                a2.append(t[j - 1])
-                i -= 1
-                j -= 1
-            elif hd == H_FROME:
-                state = "E"
-            else:
-                state = "F"
-        elif state == "E":
-            a1.append("-")
-            a2.append(t[j - 1])
-            opened = bool(bits & 4)
-            j -= 1
-            if opened:
-                state = "H"
-        else:  # F
-            a1.append(q[i - 1])
-            a2.append("-")
-            opened = bool(bits & 8)
-            i -= 1
-            if opened:
-                state = "H"
-    # leading free end gaps
-    while i > 0:
-        a1.append(q[i - 1])
-        a2.append("-")
-        i -= 1
-    while j > 0:
-        a1.append("-")
-        a2.append(t[j - 1])
-        j -= 1
-    a1.reverse()
-    a2.reverse()
-    t1 = q[end_i:]
-    t2 = t[end_j:]
-    return "".join(a1) + t1 + "-" * len(t2), "".join(a2) + "-" * len(t1) + t2

@@ -12,9 +12,9 @@ For CUDA tensors ``affine_fwd`` / ``affine_walk`` launch
 Wire format: ``ops`` is uint8 [B, nops] with nops = max(n + m) + 1, one
 opcode per walk step, backward and contiguous, OP_NONE after the walk
 ends.  K4 also turns each walk into the pair's two aligned rows, ``a1``
-and ``a2`` uint8 [B, nops - 1] (the ASCII strings
-``affine.ops_to_alignment_counts`` builds from the opcodes), with their
-length and the walk's matches and mismatches.  ``fetch`` copies the
+and ``a2`` uint8 [B, nops - 1] (the ASCII strings the JAX package's
+``ops_to_alignment_counts`` builds from the opcodes), with their length
+and the walk's matches and mismatches.  ``fetch`` copies the
 outputs but the opcodes to the host, the rows trimmed to the longest
 aligned length.
 """

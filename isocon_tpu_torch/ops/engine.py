@@ -1,15 +1,17 @@
 """Host side of the batched DP kernels (counterpart of
 ``isocon_tpu/ops/engine.py``).
 
-Sequences are interned once into a device-resident pool per padded length
-(a uint8 [R, L] tensor, its lengths and its Peq planes); batches then
-carry only int32 row indices.  Edit distances run the banded Myers kernel
-(K1, or K2 in HW / infix mode) and certify each result against its
-window; uncertified pairs escalate to wider windows (7, 9, 17, 33 words
-for bands 128 .. 1024) and past that to the full-width window, which is
-exact.  Pools wider than MYERS_MAX_L (reads longer than 16,384 bases) run
-the banded wavefront kernel (K5) instead, NW and HW, doubling the band from
-128 lanes until the result certifies.  Alignments run the
+Every call runs on the engine's sequence table: a sequence gets one table
+id (``add_seqs``) and, through a row map per padded length, one row of the
+device-resident pool of that length (a uint8 [R, L] tensor, its lengths
+and its Peq planes); batches then carry only int32 row indices.  Edit
+distances run the banded Myers kernel (K1, or K2 in HW / infix mode) and
+certify each result against its window; uncertified pairs escalate to
+wider windows (7, 9, 17, 33 words for bands 128 .. 1024) and past that to
+the full-width window, which is exact.  Pools wider than MYERS_MAX_L
+(reads longer than 16,384 bases) run the banded wavefront kernel (K5)
+instead, NW and HW, doubling the band from 128 lanes until the result
+certifies.  Alignments run the
 affine forward (K3) and walk (K4) kernels in a band chosen from the edit
 distance and double the band on overflow.  K4 also writes each pair's two
 aligned strings and counts, which the host slices out of one decoded
@@ -114,7 +116,9 @@ def pool_from_numpy(pool_flat: np.ndarray, plen: np.ndarray, L: int,
 
 
 class _SeqPool:
-    """Device-resident interned sequence pool for one padded length.
+    """Device-resident sequence pool for one padded length: an append-only
+    store whose rows the engine's table-id row maps assign (one row a
+    sequence).
 
     Row 0 is a length-1 sentinel.  New rows collect on the host and reach
     the device in one copy per ``tensors()`` call, with their Peq planes
@@ -131,7 +135,6 @@ class _SeqPool:
         self.device = device
         self.counters = counters
         self._peq_words = L // 32 if with_peq else 0
-        self.rows: dict = {}
         self.n = 1
         self._dev_rows = 1
         self._pending: List[np.ndarray] = []
@@ -142,12 +145,10 @@ class _SeqPool:
                                device=device)
         self.exact = np.zeros(cap, dtype=bool)
 
-    def intern(self, seq: str, enc) -> int:
-        r = self.rows.get(seq)
-        if r is not None:
-            return r
-        self._pending.append(enc(seq))
-        r = self.rows[seq] = self.n
+    def append(self, seq: str) -> int:
+        """A new row holding ``seq``; returns its index."""
+        self._pending.append(encode_seq(seq))
+        r = self.n
         if r == self.exact.size:
             self.exact = np.concatenate([self.exact, np.zeros_like(
                 self.exact)])
@@ -195,22 +196,19 @@ class _SeqPool:
 
 
 class _HostPool:
-    """Host-side interned sequence pool of the CPU route (the JAX
-    engine's ``_HostPool``): unique strings encode once into a growing
-    [cap, width] uint8 matrix, and a batch is one numpy row gather.  The
-    host library reads only each row's length prefix."""
+    """Host-side sequence pool of the CPU route (the JAX engine's
+    ``_HostPool``), append-only like ``_SeqPool``: each sequence encodes
+    once into a growing [cap, width] uint8 matrix, and a batch is one numpy
+    row gather.  The host library reads only each row's length prefix."""
 
     def __init__(self):
-        self.rows: dict = {}
         self.mat = np.empty((1024, 256), dtype=np.uint8)
         self.lens = np.zeros(1024, dtype=np.int64)
         self.n = 0
 
-    def intern(self, s: str, enc) -> int:
-        r = self.rows.get(s)
-        if r is not None:
-            return r
-        e = enc(s).view(np.uint8)
+    def append(self, seq: str) -> int:
+        """A new row holding ``seq``; returns its index."""
+        e = encode_seq(seq).view(np.uint8)
         cap, width = self.mat.shape
         if len(e) > width:
             w = max(256, 1 << int(len(e) - 1).bit_length())
@@ -227,17 +225,8 @@ class _HostPool:
             self.lens = lens
         self.mat[self.n, : len(e)] = e
         self.lens[self.n] = len(e)
-        r = self.rows[s] = self.n
         self.n += 1
-        return r
-
-    def gather(self, pairs, idxs, enc):
-        """(q, qlen, t, tlen) batch arrays for pairs[idxs]."""
-        ia = np.fromiter((self.intern(pairs[i][0], enc) for i in idxs),
-                         dtype=np.int64, count=len(idxs))
-        ib = np.fromiter((self.intern(pairs[i][1], enc) for i in idxs),
-                         dtype=np.int64, count=len(idxs))
-        return self.mat[ia], self.lens[ia], self.mat[ib], self.lens[ib]
+        return self.n - 1
 
 
 class _PairView:
@@ -262,7 +251,10 @@ class PairEngine:
 
     Two call surfaces, as in the JAX engine: string pairs
     (``edit_distances`` / ``align_pairs``) and engine-table indices
-    (``add_seqs`` + ``edit_distances_idx`` / ``align_pairs_idx``).
+    (``add_seqs`` + ``edit_distances_idx`` / ``align_pairs_idx``).  The
+    index forms call the string forms with the table's ids, and a string
+    call registers its strings, so every call passes through the two
+    string entries and ends in one body on table ids.
     ``device``: where the pools live and the kernels run (default CUDA;
     ``"cpu"`` runs the kernels' plain versions).  ``sharder``: a
     ``parallel.Sharder`` that runs every kernel batch over its mesh; the
@@ -288,7 +280,6 @@ class PairEngine:
         self.sharder = sharder or Sharder([self.device])
         self._host_pool = _HostPool()
         self._tab_host_rows: Optional[np.ndarray] = None
-        self._enc_cache: dict = {}
         self._pools: dict = {}
         self._pool_reserve = 0
         self._tab_seqs: List[str] = []
@@ -356,16 +347,6 @@ class PairEngine:
             )
         )
 
-    def _enc(self, s: str) -> np.ndarray:
-        e = self._enc_cache.get(s)
-        if e is None:
-            e = encode_seq(s)
-            self._enc_cache[s] = e
-        return e
-
-    def clear_cache(self):
-        self._enc_cache.clear()
-
     def reserve_pool_rows(self, n: int) -> None:
         """Initial row capacity of pools created after this call (callers
         pass ~4x the unique-read count of a run)."""
@@ -417,14 +398,14 @@ class PairEngine:
         return rm
 
     def _pool_rows_for(self, pool, Lb: int, ids: np.ndarray) -> np.ndarray:
-        """Table ids -> pool rows for bucket Lb (interning the misses)."""
+        """Table ids -> pool rows for bucket Lb (appending the misses)."""
         rm = self._tab_pool_rows[Lb] = self._grown_rowmap(
             self._tab_pool_rows.get(Lb), np.int32)
         rows = rm[ids]
         if (rows < 0).any():
-            seqs, enc, intern = self._tab_seqs, self._enc, pool.intern
+            seqs, append = self._tab_seqs, pool.append
             for tid in np.unique(ids[rows < 0]).tolist():
-                rm[tid] = intern(seqs[tid], enc)
+                rm[tid] = append(seqs[tid])
             rows = rm[ids]
         return rows.astype(np.int32, copy=False)
 
@@ -434,23 +415,18 @@ class PairEngine:
                                                       np.int64)
         rows = rm[ids]
         if (rows < 0).any():
-            seqs, enc, intern = self._tab_seqs, self._enc, \
-                self._host_pool.intern
+            seqs, append = self._tab_seqs, self._host_pool.append
             for tid in np.unique(ids[rows < 0]).tolist():
-                rm[tid] = intern(seqs[tid], enc)
+                rm[tid] = append(seqs[tid])
             rows = rm[ids]
         return rows
 
-    def _rows(self, pool, Lb, pairs, idxs, _idx):
-        if _idx is not None:
-            return (self._pool_rows_for(pool, Lb, _idx[0][idxs]),
-                    self._pool_rows_for(pool, Lb, _idx[1][idxs]))
-        enc, intern = self._enc, pool.intern
-        ia = np.fromiter((intern(pairs[i][0], enc) for i in idxs),
-                         dtype=np.int32, count=len(idxs))
-        ib = np.fromiter((intern(pairs[i][1], enc) for i in idxs),
-                         dtype=np.int32, count=len(idxs))
-        return ia, ib
+    def _register(self, pairs) -> Tuple[Tuple[np.ndarray, np.ndarray],
+                                        Tuple[np.ndarray, np.ndarray]]:
+        """A string call's table ids and lengths, (ia, ib), (la, lb)."""
+        ia = self.add_seqs([p[0] for p in pairs]).astype(np.int64)
+        ib = self.add_seqs([p[1] for p in pairs]).astype(np.int64)
+        return (ia, ib), (self._tab_lens[ia], self._tab_lens[ib])
 
     def edit_distances_idx(self, ia: np.ndarray, ib: np.ndarray,
                            k_cap: Optional[Sequence[int]] = None,
@@ -489,30 +465,31 @@ class PairEngine:
         end_j int32); end_j is len(b) for NW pairs and the exclusive end
         of the target span in hw_mode (meaningful where ed >= 0).  The
         call is the span ``isocon_engine.ed_nw`` (``.ed_hw``) of a
-        profiler trace."""
+        profiler trace.  ``lens`` and ``_idx``, the pairs' lengths and
+        table ids, come from ``edit_distances_idx``; a call without them
+        registers its strings (``add_seqs``).  Either way the body runs on
+        table ids."""
         with record_function("isocon_engine.ed_hw" if hw_mode
                              else "isocon_engine.ed_nw"):
-            return self._edit_distances(pairs, k_cap, hw_mode, lens, _idx)
+            t_start = time.perf_counter()
+            if _idx is None:
+                _idx, lens = self._register(pairs)
+            out = self._edit_distances(*_idx, *lens, k_cap, hw_mode)
+            self.counters["ed_seconds"] += time.perf_counter() - t_start
+            return out
 
-    def _edit_distances(self, pairs, k_cap, hw_mode, lens, _idx):
-        n_pairs = len(pairs)
+    def _edit_distances(self, ia, ib, la, lb, k_cap, hw_mode):
+        """``edit_distances`` of the pairs of table ids (ia[i], ib[i]),
+        of lengths (la[i], lb[i])."""
+        n_pairs = len(ia)
         ed_out = np.full(n_pairs, -1, dtype=np.int32)
         ej_out = np.zeros(n_pairs, dtype=np.int32)
         if n_pairs == 0:
             return ed_out, ej_out
-        t_start = time.perf_counter()
         self.counters["ed_calls"] += 1
         self.counters["ed_pairs"] += n_pairs
         caps = (np.asarray(k_cap, dtype=np.int64) if k_cap is not None
                 else np.full(n_pairs, 2 ** 31 - 1, dtype=np.int64))
-        if lens is not None:
-            la = np.asarray(lens[0], dtype=np.int64)
-            lb = np.asarray(lens[1], dtype=np.int64)
-        else:
-            la = np.fromiter((len(p[0]) for p in pairs), dtype=np.int64,
-                             count=n_pairs)
-            lb = np.fromiter((len(p[1]) for p in pairs), dtype=np.int64,
-                             count=n_pairs)
         if hw_mode:
             diff_skip = np.zeros(n_pairs, dtype=bool)
         else:
@@ -526,9 +503,8 @@ class PairEngine:
                 ed_out[i] = 0       # an empty query fits an empty span
         rest = np.flatnonzero(~(diff_skip | empty))
         if self.native_cpu and rest.size:
-            self._ed_native(pairs, rest, caps, hw_mode, ed_out, ej_out,
-                            _idx=_idx)
-            self.counters["ed_seconds"] += time.perf_counter() - t_start
+            self._ed_native(ia[rest], ib[rest], rest, caps, hw_mode, ed_out,
+                            ej_out)
             return ed_out, ej_out
         certifies = myers_certifies_hw if hw_mode else myers_certifies
         floor_of = self._myers_floor_hw if hw_mode else self._myers_floor
@@ -545,7 +521,8 @@ class PairEngine:
                     raise RuntimeError("band escalation failed to terminate")
                 idxs = rest[Lb_arr == Lb]
                 pool = self._get_pool(Lb)
-                ia_all, ib_all = self._rows(pool, Lb, pairs, idxs, _idx)
+                ia_all = self._pool_rows_for(pool, Lb, ia[idxs])
+                ib_all = self._pool_rows_for(pool, Lb, ib[idxs])
                 mat, plen, peq = pool.tensors()
                 L = Lb if win is None else max(Lb, 32 * win)
                 step = WAVE_BATCH if wave else ED_BATCH
@@ -609,31 +586,31 @@ class PairEngine:
             rest = (np.concatenate(next_round) if next_round
                     else np.empty(0, dtype=np.int64))
             Wp *= 2
-        self.counters["ed_seconds"] += time.perf_counter() - t_start
         return ed_out, ej_out
 
-    def _ed_native(self, pairs, idxs, caps, hw_mode, ed_out, ej_out,
-                   _idx=None):
-        """The CPU route (the JAX engine's ``_ed_native``): NW pairs run
+    def _ed_native(self, ia, ib, idxs, caps, hw_mode, ed_out, ej_out):
+        """The CPU route (the JAX engine's ``_ed_native``) for the pairs of
+        table ids (ia, ib), at positions ``idxs`` of the call: NW pairs run
         the threaded host Myers with each pair's cap (ej = len(b)); HW pairs
         the host banded traceback from band 64 with their caps (ej = the
         span's exclusive end where ed >= 0)."""
         if hw_mode:
-            res = native.hw_traceback_batch([pairs[i] for i in idxs],
-                                            band=64, k_cap=caps[idxs])
+            seqs = self._tab_seqs
+            res = native.hw_traceback_batch(
+                [(seqs[a], seqs[b]) for a, b in zip(ia.tolist(),
+                                                    ib.tolist())],
+                band=64, k_cap=caps[idxs])
             for i, (d, _s0, e0, _ops) in zip(idxs.tolist(), res):
                 ed_out[i] = d
                 ej_out[i] = e0 + 1 if d >= 0 else 0
             return
-        if _idx is not None:
-            hp = self._host_pool
-            ra = self._host_rows_for(_idx[0][idxs])
-            rb = self._host_rows_for(_idx[1][idxs])
-            q, qlen, t, tlen = hp.mat[ra], hp.lens[ra], hp.mat[rb], hp.lens[rb]
-        else:
-            q, qlen, t, tlen = self._host_pool.gather(pairs, idxs, self._enc)
-        ed_out[idxs] = native.myers_ed_batch_k(q, qlen, t, tlen, caps[idxs])
-        ej_out[idxs] = tlen
+        hp = self._host_pool
+        ra = self._host_rows_for(ia)
+        rb = self._host_rows_for(ib)
+        ed_out[idxs] = native.myers_ed_batch_k(hp.mat[ra], hp.lens[ra],
+                                               hp.mat[rb], hp.lens[rb],
+                                               caps[idxs])
+        ej_out[idxs] = hp.lens[rb]
 
     @staticmethod
     def _myers_floor(n: np.ndarray, m: np.ndarray, win: int) -> np.ndarray:
@@ -701,29 +678,28 @@ class PairEngine:
         ed_hint: known edit distance per pair (tightens the initial band).
         Returns (s1_aligned, s2_aligned, (matches, mismatches, indels))
         per pair.  The call is the span ``isocon_engine.align`` of a
-        profiler trace."""
+        profiler trace.  ``lens`` and ``_idx`` as in ``edit_distances``."""
         with record_function("isocon_engine.align"):
-            return self._align_pairs(pairs, scores, ed_hint, lens, _idx)
+            t_start = time.perf_counter()
+            if _idx is None:
+                _idx, lens = self._register(pairs)
+            out = self._align_pairs(*_idx, *lens, scores, ed_hint)
+            self.counters["align_seconds"] += time.perf_counter() - t_start
+            return out
 
-    def _align_pairs(self, pairs, scores, ed_hint, lens, _idx):
-        n_pairs = len(pairs)
-        t_start = time.perf_counter()
+    def _align_pairs(self, ia, ib, la, lb, scores, ed_hint):
+        """``align_pairs`` of the pairs of table ids (ia[i], ib[i]), of
+        lengths (la[i], lb[i])."""
+        n_pairs = len(ia)
         self.counters["align_calls"] += 1
         self.counters["align_pairs"] += n_pairs
+        seqs = self._tab_seqs
         out: List = [None] * n_pairs
-        if lens is not None:
-            la = np.asarray(lens[0], dtype=np.int64)
-            lb = np.asarray(lens[1], dtype=np.int64)
-        else:
-            la = np.fromiter((len(p[0]) for p in pairs), dtype=np.int64,
-                             count=n_pairs)
-            lb = np.fromiter((len(p[1]) for p in pairs), dtype=np.int64,
-                             count=n_pairs)
         hostm = np.minimum(la, lb) == 0      # empty side: no kernel call
         for i in np.flatnonzero(hostm):
-            a, b = pairs[i]
             ma, mi, go, ge = scores[i]
-            out[i] = oracle.align_semi_global(a, b, ma, -abs(mi), go, ge)
+            out[i] = oracle.align_semi_global(seqs[ia[i]], seqs[ib[i]], ma,
+                                              -abs(mi), go, ge)
         delta = np.abs(la - lb)
         if ed_hint is not None:
             h = np.asarray(ed_hint, dtype=np.int64)
@@ -752,7 +728,8 @@ class PairEngine:
                 bchunk = max(1, min(ALIGN_BATCH,
                                     1 << max(cap.bit_length() - 1, 0)))
                 pool = self._get_pool(Lb)
-                ia_all, ib_all = self._rows(pool, Lb, pairs, idxs, _idx)
+                ia_all = self._pool_rows_for(pool, Lb, ia[idxs])
+                ib_all = self._pool_rows_for(pool, Lb, ib[idxs])
                 respell_all = ~(pool.exact[ia_all] & pool.exact[ib_all])
                 mat, plen, _peq = pool.tensors()
                 for s in range(0, len(idxs), bchunk):
@@ -784,14 +761,14 @@ class PairEngine:
                         self.counters["align_overflows"] += 1
                         bands[i] = Wp * 2
                         if bands[i] > 4 * Lb + 512:
-                            a, b = pairs[i]
-                            raise BandOverflow((a[:30], b[:30], Wp))
+                            raise BandOverflow((seqs[ia[i]][:30],
+                                                seqs[ib[i]][:30], Wp))
                         next_round.append(i)
                         continue
                     x = pos * w
                     if r:
-                        a, b = pairs[i]
-                        out[i] = respell_rows(s1[x:x + A], s2[x:x + A], a, b)
+                        out[i] = respell_rows(s1[x:x + A], s2[x:x + A],
+                                              seqs[ia[i]], seqs[ib[i]])
                         host += 1
                     else:
                         out[i] = (s1[x:x + A], s2[x:x + A],
@@ -802,5 +779,4 @@ class PairEngine:
                 self.counters["align_decode_seconds"] += (
                     time.perf_counter() - t_decode)
             todo = np.asarray(next_round, dtype=np.int64)
-        self.counters["align_seconds"] += time.perf_counter() - t_start
         return out

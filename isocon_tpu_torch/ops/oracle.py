@@ -114,84 +114,6 @@ def edit_distance_hw(q: str, t: str):
     return ed, start_j, end_j - 1, "".join(ops)
 
 
-def edit_distance_hw_banded(q: str, t: str, band: int = 128):
-    """Banded version of ``edit_distance_hw``: offsets o = j - i restricted
-    to [-band, delta + band] (delta = len(t) - len(q), can be negative).
-
-    Returns (ed, start, end, ops) like the full version, or None when the
-    band cannot certify the result (caller falls back to the full DP).
-    Certification mirrors wavefront.band_certifies' HW rule.
-    """
-    n, m = len(q), len(t)
-    if n == 0 or m == 0:
-        return edit_distance_hw(q, t)
-    delta = m - n
-    o_lo = -band
-    o_hi = max(0, delta) + band
-    W = o_hi - o_lo + 1
-    BIGV = 10 ** 6
-    eqv = np.frombuffer(q.encode(), dtype=np.uint8)
-    etv = np.frombuffer(t.encode(), dtype=np.uint8)
-    # D[i, c] = D[i][j] with j = i + o_lo + c
-    D = np.full((n + 1, W), BIGV, dtype=np.int32)
-    js0 = np.arange(W) + o_lo
-    D[0, (js0 >= 0) & (js0 <= m)] = 0  # free target start
-    for i in range(1, n + 1):
-        js = np.arange(W) + i + o_lo
-        valid = (js >= 0) & (js <= m)
-        # deletion-from-q parent: (i-1, j) -> offset shifts by +1
-        dele = np.concatenate([D[i - 1, 1:], [BIGV]]) + 1
-        # diagonal parent: (i-1, j-1) -> same slot
-        jprev = js - 1
-        sub_ok = (jprev >= 0) & (jprev < m)
-        subcost = np.where(
-            sub_ok & (eqv[i - 1] == etv[np.clip(jprev, 0, m - 1)]), 0, 1
-        )
-        diag = np.where(jprev >= 0, D[i - 1] + subcost, BIGV)
-        row = np.minimum(dele, diag)
-        # horizontal chain (consume t): min-plus prefix scan within band
-        f = row - np.arange(W)
-        np.minimum.accumulate(f, out=f)
-        row = np.minimum(row, f + np.arange(W))
-        D[i] = np.where(valid, row, BIGV)
-    last = D[n]
-    jn = np.arange(W) + n + o_lo
-    ok = (jn >= 0) & (jn <= m)
-    vals = np.where(ok, last, BIGV)
-    ed = int(vals.min())
-    # certification: every optimal path of a distance <= ed fits the band
-    if not (ed <= band and max(0, delta) + 2 * ed <= o_hi):
-        return None
-    cbest = int(np.argmin(vals))  # smallest end j among minima
-    end_j = int(jn[cbest])
-    # traceback; preference diag > D(consume t) > I(consume q)
-    i, c = n, cbest
-    ops = []
-    while i > 0:
-        j = i + o_lo + c
-        jprev = j - 1
-        if (
-            i > 0
-            and jprev >= 0
-            and c < W
-            and D[i, c]
-            == D[i - 1, c] + (0 if eqv[i - 1] == etv[jprev] else 1)
-        ):
-            ops.append("=" if eqv[i - 1] == etv[jprev] else "X")
-            i -= 1  # diagonal: same slot
-        elif c > 0 and D[i, c] == D[i, c - 1] + 1:
-            ops.append("D")
-            c -= 1
-        else:
-            assert c + 1 < W and D[i, c] == D[i - 1, c + 1] + 1, (i, c)
-            ops.append("I")
-            i -= 1
-            c += 1
-    start_j = i + o_lo + c
-    ops.reverse()
-    return ed, start_j, end_j - 1, "".join(ops)
-
-
 def nw_unit_alignment(a: str, b: str):
     """Global unit-cost alignment with traceback.
 

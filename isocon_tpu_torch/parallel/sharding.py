@@ -17,26 +17,24 @@ Every pair's result is its kernel's on that pair alone, so the results
 equal the unsharded wrapper's whatever n, block size or kernel form a
 block's launch size selects.
 
-The JAX ``Sharder``'s non-pooled methods (``banded_ed``,
-``banded_sg_align``, ``sg_align_with_ops``) serve the JAX engine's
-non-Pallas route, where pairs travel as [B, L] code planes; the port's
-engine has no such route (every pair goes through a pool), so they have
-no counterpart here.
+This module knows no kernel: ``Sharder.launch`` takes the kernel's wrapper
+(``ops.myers.myers_ed_pool``, ``ops.affine_cuda.sg_align_pool``, ...) from
+its caller, and nothing here imports ``ops``.  So the JAX ``Sharder``'s
+per-kernel methods and its ``nn_round_sharded`` functions have no
+counterpart; neither have its non-pooled methods (``banded_ed``,
+``banded_sg_align``, ``sg_align_with_ops``), which serve the JAX engine's
+non-Pallas route, where pairs travel as [B, L] code planes (every pair of
+the port's engine goes through a pool).
 """
 from __future__ import annotations
 
 import weakref
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.affine_cuda import fetch, sg_align_pool
-from ..ops.myers import WIN, myers_ed_pool, myers_hw_pool
-from ..ops.wavefront import banded_ed_pool
 from . import distributed
-
-UNREACHED = 2 ** 30   # the NN rounds' minimum where no pair is in band
 
 
 def _pad_rows(x: np.ndarray, total: int) -> np.ndarray:
@@ -105,7 +103,8 @@ def _storage_of(t: torch.Tensor) -> torch.Tensor:
 
 
 class Sharder:
-    """Runs the engine's pooled kernel batches over a mesh of devices.
+    """Runs pooled kernel batches over a mesh of devices, whatever the
+    kernel: ``launch`` takes the kernel's wrapper as an argument.
 
     ``devices``: an ordered list of ``torch.device`` (``mesh.make_mesh``;
     entries may repeat, each is one shard) or a
@@ -223,93 +222,3 @@ class Sharder:
                 for j, k in enumerate(where.get(r, [])):
                     blocks[k][i] = got[j]
         return [tuple(b) for b in blocks]
-
-    # ------------------------------------------------------------------
-    # the engine's four pooled routes, launched and collected at once;
-    # index vectors and scores are host arrays, the outputs host numpy
-    # arrays
-    # ------------------------------------------------------------------
-    def myers_ed_pool(self, pool, plen, peq, ia, ib, *, L: int,
-                      win: Optional[int] = WIN) -> np.ndarray:
-        """K1 (``ops.myers.myers_ed_pool``): ed int32 [B]."""
-        return self.collect(self.launch(myers_ed_pool, (pool, plen, peq),
-                                        (ia, ib), L=L, win=win))[0]
-
-    def myers_hw_pool(self, pool, plen, peq, ia, ib, *, L: int,
-                      win: Optional[int] = WIN
-                      ) -> Tuple[np.ndarray, np.ndarray]:
-        """K2 (``ops.myers.myers_hw_pool``): (ed, ej) int32 [B]."""
-        return self.collect(self.launch(myers_hw_pool, (pool, plen, peq),
-                                        (ia, ib), L=L, win=win))
-
-    def banded_ed_pool(self, pool, plen, ia, ib, *, Wp: int,
-                       hw_mode: bool = False, small: Optional[bool] = None
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-        """K5 (``ops.wavefront.banded_ed_pool``): (ed, end_j) int32 [B]."""
-        return self.collect(self.launch(banded_ed_pool, (pool, plen),
-                                        (ia, ib), Wp=Wp, hw_mode=hw_mode,
-                                        small=small))
-
-    def sg_align_pool(self, pool, plen, ia, ib, match, mismatch, gopen,
-                      gext, *, Wp: int) -> Tuple[np.ndarray, ...]:
-        """K3 + K4 (``ops.affine_cuda.sg_align_pool``): the eleven host
-        outputs of ``fetch``, the aligned rows trimmed to the longest."""
-        return self.collect(self.launch(
-            sg_align_pool, (pool, plen),
-            (ia, ib, match, mismatch, gopen, gext), to_host=fetch, Wp=Wp))
-
-
-def _code_pool(codes: np.ndarray, lens: np.ndarray, dev: torch.device):
-    return (torch.from_numpy(np.ascontiguousarray(codes).view(np.uint8)
-                             .copy()).to(dev),
-            torch.from_numpy(np.asarray(lens, np.int32).copy()).to(dev))
-
-
-def nn_round_sharded(mesh, q, t, qlen, tlen, query_ids, n_queries: int, *,
-                     Wp: int, L: int) -> np.ndarray:
-    """One sharded NN-search round: the banded EDs (K5, ``small=False`` at
-    any Wp, as the JAX function's ``banded_ed``) of pairs (q[b], t[b]),
-    pair axis split over ``mesh`` (a device list), then
-    each query's minimum over its pairs, merged on the host as ``pmin``
-    merges the shards' minima.  q, t: int8 [B, L] codes; returns int32
-    [n_queries] (2^30 for a query with no pair)."""
-    if q.shape[1] != L or t.shape[1] != L:
-        raise ValueError("q and t must be [B, L] with L = %d" % L)
-    sharder = Sharder(mesh)
-    B = q.shape[0]
-    pool, plen = _code_pool(np.concatenate([q, t]),
-                            np.concatenate([qlen, tlen]), sharder.device)
-    ia = np.arange(B, dtype=np.int32)
-    ed, _ = sharder.banded_ed_pool(pool, plen, ia, ia + B, Wp=Wp,
-                                   small=False)
-    out = np.full(n_queries, UNREACHED, dtype=np.int32)
-    np.minimum.at(out, np.asarray(query_ids, np.int64), ed)
-    return out
-
-
-def nn_round_sharded_2d(devices_2d, seqs, lens, *, Wp: int,
-                        L: int) -> np.ndarray:
-    """2-D blocked all-pairs distance minima: a grid of R x C devices
-    (nested lists) tiles the pairwise matrix; device (i, j) runs the banded
-    EDs (K5, ``small=False``) of row block i against column block j, the
-    self-pairs and every ed <= 0 count as 2^30, and each row's minimum
-    merges over its C tiles on the host.  seqs: int8 [N, L] codes, N a
-    multiple of R x C; returns int32 [N], each sequence's least ED to
-    another (2^30 where none is in band)."""
-    grid = [list(row) for row in devices_2d]
-    R, C = len(grid), len(grid[0])
-    N = seqs.shape[0]
-    if N % (R * C) or seqs.shape[1] != L:
-        raise ValueError("seqs must be [N, %d] with N a multiple of %d"
-                         % (L, R * C))
-    nr, nc = N // R, N // C
-    sharder = Sharder([d for row in grid for d in row])
-    pool, plen = _code_pool(seqs, lens, sharder.device)
-    # tile (i, j) is block i * C + j of the flattened grid: nr * nc pairs
-    ti, tj = np.divmod(np.arange(R * C), C)
-    ia = (ti[:, None] * nr + np.repeat(np.arange(nr), nc)[None]).ravel()
-    ib = (tj[:, None] * nc + np.tile(np.arange(nc), nr)[None]).ravel()
-    ed, _ = sharder.banded_ed_pool(pool, plen, ia.astype(np.int32),
-                                   ib.astype(np.int32), Wp=Wp, small=False)
-    ed = np.where(ed <= 0, UNREACHED, ed).reshape(R, C, nr, nc)
-    return ed.min(axis=3).min(axis=1).reshape(N).astype(np.int32)

@@ -34,18 +34,8 @@ def align_pair_list(
 
     Returns (eds, alignments); alignments[i] = (a1, a2, (m, x, i)).
     Routes through the engine's index API (one registration pass, then
-    index-array batches) when available.
+    index-array batches).
     """
-    if not hasattr(engine, "add_seqs"):  # test doubles / minimal engines
-        if eds is None:
-            eds, _ = engine.edit_distances(pairs)
-            eds = [int(d) for d in eds]
-        scores = [
-            (2, adaptive_mismatch_penalty(d, len(a), len(b)), 2, 0)
-            for d, (a, b) in zip(eds, pairs)
-        ]
-        alns = engine.align_pairs(pairs, scores, ed_hint=eds)
-        return list(eds), alns
     ia = engine.add_seqs([p[0] for p in pairs])
     ib = engine.add_seqs([p[1] for p in pairs])
     if eds is None:

@@ -7,7 +7,8 @@ lax.scan reference ``sg_align_with_ops`` and the compacted Pallas kernels
 in interpret mode: score, endpoint, start point, overflow flag and
 decoded alignment on every pair, those that overflow the band included.
 K4's aligned rows (``sg_rows_plain``) must spell, pair by pair, the
-strings and counts ``ops_to_alignment_counts`` decodes from the walk.
+strings and counts the JAX package's ``ops_to_alignment_counts`` decodes
+from the walk.
 The CUDA kernels are held to the plain versions in test_torch_cuda.py.
 Tolerance: exact (integer DP).
 """
@@ -17,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from isocon_tpu.ops.affine import ops_to_alignment, sg_align_with_ops
+from isocon_tpu.ops.affine import (ops_to_alignment, ops_to_alignment_counts,
+                                   sg_align_with_ops)
 from isocon_tpu.ops.affine_pallas_c import sg_align_with_ops_pallas_c
 from isocon_tpu.ops.encode import pad_batch
 from isocon_tpu_torch.ops import affine as ta
@@ -109,16 +111,16 @@ def _check(pairs, ref, got):
         a, b = pairs[i]
         want = ops_to_alignment(r_ops[i], a, b, int(r_ei[i]), int(r_ej[i]),
                                 int(r_fi[i]), int(r_fj[i]))
-        have = ta.ops_to_alignment(g_ops[i], a, b, int(g_ei[i]),
-                                   int(g_ej[i]), int(g_fi[i]), int(g_fj[i]))
+        have = ops_to_alignment(g_ops[i], a, b, int(g_ei[i]), int(g_ej[i]),
+                                int(g_fi[i]), int(g_fj[i]))
         assert have == want, i
         if g_ov[i]:
             assert alen[i] == nmat[i] == nmis[i] == 0 and not a1[i].any()
         else:
             assert _rows_of(a1, a2, alen, nmat, nmis, i) == \
-                ta.ops_to_alignment_counts(g_ops[i], a, b, int(g_ei[i]),
-                                           int(g_ej[i]), int(g_fi[i]),
-                                           int(g_fj[i])), i
+                ops_to_alignment_counts(g_ops[i], a, b, int(g_ei[i]),
+                                        int(g_ej[i]), int(g_fi[i]),
+                                        int(g_fj[i])), i
     return int(r_ov.sum())
 
 
@@ -139,19 +141,6 @@ def test_plain_matches_pallas_interpret(Wp, B, seed):
                                      Wp=Wp, L=L, interpret=True)
     got = _port(q, qlen, t, tlen, ma, mi, go, ge, Wp)
     _check(pairs, ref, got)
-
-
-def test_ops_decode_counts_match_jax():
-    from isocon_tpu.ops.affine import ops_to_alignment_counts as jcounts
-
-    pairs, q, qlen, t, tlen, ma, mi, go, ge = _inputs(3, 48)
-    best, ei, ej, ops, fi, fj, ov = [x.numpy() for x in _port(
-        q, qlen, t, tlen, ma, mi, go, ge, 512)[:7]]
-    for i in np.flatnonzero(~ov):
-        a, b = pairs[i]
-        args = (ops[i], a, b, int(ei[i]), int(ej[i]), int(fi[i]),
-                int(fj[i]))
-        assert ta.ops_to_alignment_counts(*args) == jcounts(*args)
 
 
 def _walks(pairs, Wp, mismatch=None):
@@ -264,11 +253,11 @@ def _rows_case(kind):
                                   "empty_mid", "insertion", "deletion",
                                   "n_bases", "ragged", "respelt"])
 def test_rows_plain_match_host_decode(kind):
-    """``sg_rows_plain`` (K4's epilogue) against ``ops_to_alignment_counts``
-    on every pair: both strings, byte for byte, and the counts (``respelt``:
-    those of ``respell_rows``, which spells the rows with the pairs' own
-    letters); the rows past their length, and the rows of overflowed
-    pairs, are zeros."""
+    """``sg_rows_plain`` (K4's epilogue) against the JAX package's
+    ``ops_to_alignment_counts`` on every pair: both strings, byte for
+    byte, and the counts (``respelt``: those of ``respell_rows``, which
+    spells the rows with the pairs' own letters); the rows past their
+    length, and the rows of overflowed pairs, are zeros."""
     pairs, (q, t, n, m, ops, ei, ej, fi, fj, ov) = _rows_case(kind)
     width = int((n + m).max()) + 3
     a1, a2, alen, nmat, nmis = ta.sg_rows_plain(ops, ei, ej, fi, fj, ov, q,
@@ -283,7 +272,7 @@ def test_rows_plain_match_host_decode(kind):
             assert alen[k] == nmat[k] == nmis[k] == 0
             assert not a1[k].any() and not a2[k].any()
             continue
-        want = ta.ops_to_alignment_counts(
+        want = ops_to_alignment_counts(
             ops[k].numpy(), a, b, int(ei[k]), int(ej[k]), int(fi[k]),
             int(fj[k]))
         have = _rows_of(a1, a2, alen, nmat, nmis, k)

@@ -1039,9 +1039,10 @@ def test_make_mesh_takes_the_first_cards():
 
 @pytest.mark.parametrize("mesh", ["cuda_x2", "cuda_x3", "cuda_and_cpu"])
 def test_sharder_matches_local_wrappers(mesh):
-    """A Sharder of 2 or 3 shards of the card, or of the card and the CPU
-    (whose block runs the plain versions on a replica of the pool), equals
-    the unsharded wrappers on a ragged batch of 151 pairs: K1 (windows 7
+    """The wrappers launched and collected through a Sharder (the engine's
+    route) of 2 or 3 shards of the card, or of the card and the CPU (whose
+    block runs the plain versions on a replica of the pool), equal the
+    unsharded wrappers on a ragged batch of 151 pairs: K1 (windows 7
     and 33), K2, K5 (bands 128 and 256, NW and HW) and K3 + K4 (band 256,
     pairs that overflow included; K4's aligned rows, up to each row's
     length, and counts), every entry."""
@@ -1059,27 +1060,34 @@ def test_sharder_matches_local_wrappers(mesh):
     ia = np.arange(B, dtype=np.int32)
     ib = ia + B
     ia_t, ib_t = (torch.from_numpy(x).to(dev) for x in (ia, ib))
+
+    def sharded(fn, tensors, vectors, **kw):
+        return sh.collect(sh.launch(fn, tensors, vectors, **kw))
+
     for win in (7, 33):
+        got, = sharded(tm.myers_ed_pool, (pool, plen, peq), (ia, ib), L=L,
+                       win=win)
         np.testing.assert_array_equal(
-            sh.myers_ed_pool(pool, plen, peq, ia, ib, L=L, win=win),
-            tm.myers_ed_pool(pool, plen, peq, ia_t, ib_t, L=L,
-                             win=win).cpu().numpy())
+            got, tm.myers_ed_pool(pool, plen, peq, ia_t, ib_t, L=L,
+                                  win=win).cpu().numpy())
     for got, want in zip(
-            sh.myers_hw_pool(pool, plen, peq, ia, ib, L=L, win=7),
+            sharded(tm.myers_hw_pool, (pool, plen, peq), (ia, ib), L=L,
+                    win=7),
             tm.myers_hw_pool(pool, plen, peq, ia_t, ib_t, L=L, win=7)):
         np.testing.assert_array_equal(got, want.cpu().numpy())
     for Wp in (128, 256):
         for hw_mode in (False, True):
             for got, want in zip(
-                    sh.banded_ed_pool(pool, plen, ia, ib, Wp=Wp,
-                                      hw_mode=hw_mode),
+                    sharded(tw.banded_ed_pool, (pool, plen), (ia, ib),
+                            Wp=Wp, hw_mode=hw_mode),
                     tw.banded_ed_pool(pool, plen, ia_t, ib_t, Wp=Wp,
                                       hw_mode=hw_mode)):
                 np.testing.assert_array_equal(got, want.cpu().numpy())
     scores = [np.full(B, 2, np.int32),
               np.array([(-1, -2, -4)[i % 3] for i in range(B)], np.int32),
               np.full(B, 2, np.int32), (np.arange(B) % 2).astype(np.int32)]
-    got = sh.sg_align_pool(pool, plen, ia, ib, *scores, Wp=256)
+    got = sharded(tac.sg_align_pool, (pool, plen), (ia, ib, *scores),
+                  to_host=tac.fetch, Wp=256)
     want = tac.fetch(tac.sg_align_pool(
         pool, plen, ia_t, ib_t, *(torch.from_numpy(x).to(dev)
                                   for x in scores), Wp=256))

@@ -4,6 +4,8 @@ package's PairEngine on the same pair lists: edit distances under
 window, and affine alignments whose band overflows and doubles.
 Tolerance: exact.
 """
+import functools
+import inspect
 import random
 
 import numpy as np
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from isocon_tpu.ops.engine import PairEngine as JaxEngine
+from isocon_tpu_torch import cli as port_cli
 from isocon_tpu_torch.ops import oracle
 from isocon_tpu_torch.ops.encode import encode_seq
 from isocon_tpu_torch.ops.engine import PairEngine, pool_from_numpy
@@ -243,11 +246,12 @@ def test_pool_from_numpy_layout():
     np.testing.assert_array_equal(mat.numpy(), flat.reshape(3, 4))
 
 
-def _assert_pool_rows(pool, seqs):
-    """Every given sequence sits in its row with its length and Peq."""
+def _assert_pool_rows(pool, seqs, rows):
+    """Each given sequence sits in its given row with its length and
+    Peq."""
     mat, lens, peq = pool.tensors()
     assert mat.shape[0] == lens.shape[0] == peq.shape[0] == pool.n
-    rows = torch.tensor([pool.rows[s] for s in seqs])
+    rows = torch.as_tensor(np.asarray(rows, dtype=np.int64))
     for s, r in zip(seqs, rows.tolist()):
         e = encode_seq(s).view(np.uint8)
         assert int(lens[r]) == len(s)
@@ -257,10 +261,11 @@ def _assert_pool_rows(pool, seqs):
 
 
 def test_seq_pool_reserved_beyond_host_cap():
-    """``reserve_pool_rows`` past a pool's starting capacity, then
-    interning in several pushes (one of them past the reserved capacity,
-    so the pool grows): rows, lengths and Peq planes stay right, in a pool
-    made after the call and in one made before it."""
+    """``reserve_pool_rows`` past a pool's starting capacity, then rows
+    taken through the engine's table-id row map in several pushes (one of
+    them past the reserved capacity, so the pool grows): rows, lengths and
+    Peq planes stay right, in a pool made after the call and in one made
+    before it, and an id asked for again keeps its row."""
     rng = random.Random(7)
     seqs = sorted({_rs(rng, rng.randrange(10, 60)) for _ in range(6000)})
     eng = PairEngine(device="cpu")
@@ -270,15 +275,16 @@ def test_seq_pool_reserved_beyond_host_cap():
     eng.reserve_pool_rows(100)          # a smaller request never shrinks it
     late = eng._get_pool(128)
     assert late.mat.shape[0] == late.peq.shape[0] == 5000
+    ids = eng.add_seqs(seqs)
     for pool in (early, late):
-        for s in seqs[:3000]:
-            pool.intern(s, encode_seq)
-        _assert_pool_rows(pool, seqs[:3000:97])
+        rows = eng._pool_rows_for(pool, pool.L, ids[:3000])
+        _assert_pool_rows(pool, seqs[:3000:97], rows[::97])
         first = pool.tensors()[0][:3001].clone()
-        for s in seqs[3000:]:           # crosses 1024 x 2^k and 5000 rows
-            pool.intern(s, encode_seq)
-        assert pool.intern(seqs[0], encode_seq) == pool.rows[seqs[0]]
-        _assert_pool_rows(pool, seqs[::97] + seqs[-5:])
+        # crosses 1024 x 2^k and 5000 rows
+        rows = eng._pool_rows_for(pool, pool.L, ids)
+        assert eng._pool_rows_for(pool, pool.L, ids[:1])[0] == rows[0]
+        _assert_pool_rows(pool, seqs[::97] + seqs[-5:],
+                          np.concatenate([rows[::97], rows[-5:]]))
         assert pool.n == len(seqs) + 1 <= pool.mat.shape[0]
         assert torch.equal(pool.tensors()[0][:3001], first)
     # through the engine: one call interns every sequence into the
@@ -288,6 +294,131 @@ def test_seq_pool_reserved_beyond_host_cap():
     assert eng._get_pool(256).mat.shape[0] == 10000
     want, _ = JaxEngine().edit_distances(pairs)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# one body on table ids behind both call surfaces
+# ---------------------------------------------------------------------------
+def _volume(counters):
+    """The engine counters that count (all but the seconds)."""
+    return {k: v for k, v in counters.items() if not k.endswith("seconds")}
+
+
+@pytest.mark.parametrize("route,native", [
+    ("nw", False), ("nw", True), ("hw", False), ("hw", True),
+    ("align", False)], ids=["nw_plain", "nw_native", "hw_plain",
+                            "hw_native", "align_plain"])
+def test_string_and_id_calls_agree(route, native):
+    """A string call registers its strings and runs the id call's body: on
+    the same pairs (each sequence on both sides and more than once; empty
+    sides, caps, band overflows and letters the codes do not give back
+    among them) the two surfaces give equal outputs and equal counters,
+    a sequence has one table id, and it holds one row in each pool it
+    entered, and one in the CPU route's host pool."""
+    if route == "align":
+        pairs = (_rows_route_case("mixed")[0]
+                 + _align_case(5, drift=False)[0][-8:])
+    else:
+        pairs = _ed_pairs(4)[20:-1]
+    pairs = pairs + [(b, a) for a, b in pairs[::-1]]
+    caps = np.random.default_rng(4).integers(0, 60, len(pairs))
+    scores = [(2, (-1, -2, -4)[i % 3], 2, (0, 1)[i % 2])
+              for i in range(len(pairs))]
+    runs = []
+    for by_id in (False, True):
+        eng = PairEngine(device="cpu")
+        eng.native_cpu = native
+        if by_id:
+            ia = eng.add_seqs([a for a, _ in pairs])
+            ib = eng.add_seqs([b for _, b in pairs])
+            out = (eng.align_pairs_idx(ia, ib, scores) if route == "align"
+                   else eng.edit_distances_idx(ia, ib, k_cap=caps,
+                                               hw_mode=route == "hw"))
+        else:
+            out = (eng.align_pairs(pairs, scores) if route == "align"
+                   else eng.edit_distances(pairs, k_cap=caps,
+                                           hw_mode=route == "hw"))
+        runs.append((eng, out))
+    (by_str, got), (by_ids, want) = runs
+    if route == "align":
+        assert got == want
+        assert by_str.counters["align_host_rows"] > 0
+        assert by_str.counters["align_overflows"] > 0
+    else:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert (got[0] >= 0).any() and (got[0] < 0).any()
+    assert _volume(by_str.counters) == _volume(by_ids.counters)
+    distinct = {s for p in pairs for s in p}
+    for eng, _ in runs:
+        assert sorted(eng._tab_seqs) == sorted(distinct)
+        for Lb, pool in eng._pools.items():
+            rm = eng._tab_pool_rows[Lb]
+            held = np.flatnonzero(rm >= 0)
+            assert sorted(rm[held].tolist()) == list(range(1, pool.n))
+            _assert_pool_rows(pool, [eng._tab_seqs[t] for t in held],
+                              rm[held])
+        if eng._tab_host_rows is not None:
+            rm = eng._tab_host_rows
+            assert sorted(rm[rm >= 0].tolist()) == list(
+                range(eng._host_pool.n))
+    assert bool(by_str._pools) == (not native)
+    assert (by_str._host_pool.n > 0) == (native and route == "nw")
+
+
+def test_entries_see_every_pair_as_a_benchmark_hooks_them(tmp_path,
+                                                          monkeypatch):
+    """``PairEngine.edit_distances`` and ``align_pairs``, wrapped by name
+    and their arguments bound by name (``pairs``, ``k_cap``, ``hw_mode``,
+    ``lens``, ``scores``) as a benchmark's recorder does, see every pair of
+    a small CPU pipeline, whether the caller passed strings or table ids:
+    the wrapped calls' pairs sum to the engine's ``ed_pairs`` and
+    ``align_pairs``, and each ``pairs[i]`` is two strings of the lengths
+    ``lens`` gives."""
+    seen = {"ed": 0, "align": 0, "by_str": 0, "by_ids": 0}
+
+    def hooked(kind, orig):
+        sig = inspect.signature(orig)
+
+        @functools.wraps(orig)
+        def wrapped(engine, *args, **kwargs):
+            bound = sig.bind(engine, *args, **kwargs)
+            bound.apply_defaults()
+            arg = bound.arguments
+            pairs, lens = arg["pairs"], arg["lens"]
+            if kind == "ed":
+                assert isinstance(arg["hw_mode"], bool)
+                assert arg["k_cap"] is None or len(arg["k_cap"]) == len(pairs)
+            else:
+                assert len(arg["scores"]) == len(pairs)
+            for i in range(len(pairs)):
+                a, b = pairs[i]
+                assert isinstance(a, str) and isinstance(b, str)
+                if lens is not None:
+                    assert (len(a), len(b)) == (lens[0][i], lens[1][i])
+            seen[kind] += len(pairs)
+            seen["by_str" if lens is None else "by_ids"] += 1
+            return orig(engine, *args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(PairEngine, "edit_distances",
+                        hooked("ed", PairEngine.edit_distances))
+    monkeypatch.setattr(PairEngine, "align_pairs",
+                        hooked("align", PairEngine.align_pairs))
+    rng = random.Random(23)
+    base = _rs(rng, 180)
+    variant = base[:60] + ("C" if base[60] != "C" else "G") + base[61:]
+    reads = str(tmp_path / "reads.fa")
+    with open(reads, "w") as fh:
+        for k in range(24):
+            iso = base if k % 2 else variant
+            fh.write(">r%d\n%s\n" % (k, _mut(rng, iso, rng.randrange(0, 3))))
+    engine, _phase1 = port_cli.main(["pipeline", "-fl_reads", reads,
+                                     "-outfolder", str(tmp_path / "out"),
+                                     "--device", "cpu"])
+    assert seen["ed"] == engine.counters["ed_pairs"] > 0
+    assert seen["align"] == engine.counters["align_pairs"] > 0
+    assert seen["by_str"] > 0 and seen["by_ids"] > 0
 
 
 # ---------------------------------------------------------------------------

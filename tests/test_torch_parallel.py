@@ -3,15 +3,18 @@ unsharded wrappers and the JAX package's ``Sharder`` (on the 8 virtual CPU
 devices of conftest.py).
 
 On the CPU a mesh is n logical shards of ``cpu``; each block runs the
-kernels' plain versions.  The Sharder's four pooled routes (K1 at windows
-7 and 33, K2, K5 at bands 128 and 256 in both modes, K3 + K4) run ragged
+kernels' plain versions.  The four pooled kernel wrappers (K1 at windows
+7 and 33, K2, K5 at bands 128 and 256 in both modes, K3 + K4) run through
+``Sharder.launch`` and ``Sharder.collect``, the engine's route, on ragged
 batches (B not a multiple of n, and B < n) for n = 2, 3 and 8.  The
-sharded engine, the pipeline, the NN rounds, the seam and the CLI are in
+sharded engine, the pipeline, the seam and the CLI are in
 test_torch_parallel_engine.py (two files, so that each stays near two
 minutes under ``--dist loadfile``).  Tolerance: exact.
 """
+import ast
 import gc
 import weakref
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from isocon_tpu_torch.ops import affine_cuda as tac
 from isocon_tpu_torch.ops import myers as tm
 from isocon_tpu_torch.ops import wavefront as tw
 from isocon_tpu_torch.ops.engine import pool_from_numpy
+from isocon_tpu_torch import parallel
 from isocon_tpu_torch.parallel import Sharder, distributed, make_mesh
 from test_torch_affine import _inputs as affine_inputs
 from test_torch_myers import make_pairs as myers_code_pairs
@@ -51,6 +55,12 @@ def _pick(B, seed=0):
 def _jax_pad(x, grain):
     """The JAX Sharder's batch: padded with the last pair to ``grain``."""
     return np.concatenate([x, np.repeat(x[-1:], grain - len(x))])
+
+
+def _sharded(sh, fn, tensors, vectors, **kw):
+    """``fn`` over ``sh``'s mesh as the engine runs a batch: launched on
+    every block, then collected to host arrays."""
+    return sh.collect(sh.launch(fn, tensors, vectors, **kw))
 
 
 def _pool(q, t, ql, tl, L):
@@ -124,8 +134,28 @@ def test_replicas_follow_the_pool():
     assert torch.equal(moved[0], bigger[:9])
 
 
+@pytest.mark.parametrize("name", ["sharding", "mesh", "distributed"])
+def test_parallel_modules_import_no_kernel_module(name):
+    """The block launcher knows no kernel: these modules import nothing
+    from ``isocon_tpu_torch.ops`` (the engine hands ``Sharder.launch`` the
+    kernels' wrappers), so the imports run one way, ops -> parallel."""
+    path = Path(parallel.__file__).with_name(name + ".py")
+    here = "isocon_tpu_torch.parallel"
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = here.rsplit(".", node.level - 1)[0] if node.level else ""
+            mod = ".".join(x for x in (base, node.module) if x)
+            found += [mod] + [mod + "." + a.name for a in node.names]
+    assert found
+    assert not [m for m in found if m == "isocon_tpu_torch.ops"
+                or m.startswith("isocon_tpu_torch.ops.")], found
+
+
 # ---------------------------------------------------------------------------
-# the Sharder's pooled routes
+# the pooled kernel wrappers through the Sharder's launch and collect
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def myers_data():
@@ -141,8 +171,9 @@ def myers_data():
 @pytest.mark.parametrize("win,hw", [(7, False), (33, False), (7, True)],
                          ids=["k1_win7", "k1_win33", "k2_win7"])
 def test_sharded_myers_matches_local_and_jax(myers_data, n, win, hw):
-    """Each pair's answer in a ragged sharded batch equals the unsharded
-    wrapper's and the JAX Sharder's on all the pool's pairs."""
+    """Each pair's answer in a ragged batch launched and collected over the
+    mesh equals the unsharded wrapper's and the JAX Sharder's on all the
+    pool's pairs."""
     L, pool_flat, plen_np, pool, plen = myers_data[288 if win == 7
                                                    else 1056]
     peq = tm.peq_table(pool, plen)
@@ -159,10 +190,9 @@ def test_sharded_myers_matches_local_and_jax(myers_data, n, win, hw):
     sh = Sharder(_cpu_mesh(n))
     for B in _sizes(n):
         ia, ib = _pick(B, seed=B)
-        got = (sh.myers_hw_pool if hw else sh.myers_ed_pool)(
-            pool, plen, peq, ia, ib, L=L, win=win)
-        if not hw:
-            got = (got,)
+        got = _sharded(sh, port_fn, (pool, plen, peq), (ia, ib), L=L,
+                       win=win)
+        assert len(got) == len(local)
         for g, lo, w in zip(got, local, want):
             assert g.dtype == np.int32 and g.shape == (B,)
             np.testing.assert_array_equal(g, lo.numpy()[ia])
@@ -196,8 +226,9 @@ def test_sharded_wavefront_matches_local_and_jax(wave_data, n, Wp):
             small=False, kernel="pallas" if Wp == 128 else "scan")
         for B in _sizes(n):
             ia, ib = _pick(B, seed=B + hw_mode)
-            got = sh.banded_ed_pool(pool, plen, ia, ib, Wp=Wp,
-                                    hw_mode=hw_mode)
+            got = _sharded(sh, tw.banded_ed_pool, (pool, plen), (ia, ib),
+                           Wp=Wp, hw_mode=hw_mode)
+            assert len(got) == 2
             for g, lo, w in zip(got, local, want):
                 np.testing.assert_array_equal(g, lo.numpy()[ia])
                 np.testing.assert_array_equal(g, np.asarray(w)[ia])
@@ -227,7 +258,8 @@ def test_sharded_alignment_matches_local_and_jax(align_data, n):
     for B in _sizes(n):
         ia, ib = _pick(B, seed=B)
         sc = [x[ia] for x in scores]
-        got = sh.sg_align_pool(pool, plen, ia, ib, *sc, Wp=256)
+        got = _sharded(sh, tac.sg_align_pool, (pool, plen), (ia, ib, *sc),
+                       to_host=tac.fetch, Wp=256)
         local = tac.fetch(tac.sg_align_pool(
             pool, plen, torch.from_numpy(ia), torch.from_numpy(ib),
             *(torch.from_numpy(x) for x in sc), Wp=256))

@@ -1,4 +1,4 @@
-"""The port's sharded engine, pipeline, NN rounds, multi-process seam and
+"""The port's sharded engine, pipeline, multi-process seam and
 ``make_engine`` against the port's unsharded runs and the JAX package's
 ``parallel/`` (on the 8 virtual CPU devices of conftest.py).
 
@@ -15,20 +15,14 @@ import torch
 
 from isocon_tpu.cli import main as jax_main
 from isocon_tpu.io import read_fasta as jax_read_fasta
-from isocon_tpu.ops.encode import pad_batch
 from isocon_tpu.ops.engine import PairEngine as JaxEngine
 from isocon_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from isocon_tpu.parallel.sharding import Sharder as JaxSharder
-from isocon_tpu.parallel.sharding import nn_round_sharded as jax_nn_round
-from isocon_tpu.parallel.sharding import (
-    nn_round_sharded_2d as jax_nn_round_2d)
 from isocon_tpu_torch import cli as port_cli
 from isocon_tpu_torch.io import read_fasta
 from isocon_tpu_torch.ops.engine import PairEngine
 from isocon_tpu_torch.params import Params
 from isocon_tpu_torch.parallel import Sharder, dryrun, make_mesh
-from isocon_tpu_torch.parallel.sharding import (nn_round_sharded,
-                                                nn_round_sharded_2d)
 from test_sharding import _noisy_copy, mutate, rand_seq
 from test_torch_native import plain_port_routes
 
@@ -229,48 +223,6 @@ def test_sharded_pipeline_matches_local_and_jax(tmp_path):
     got = _sorted_outputs(runs[4][0], read_fasta)
     assert got == _sorted_outputs(jax_out, jax_read_fasta)
     assert {s for _sup, s in got[0]} == set(isoforms)
-
-
-@pytest.fixture(scope="module")
-def nn_seqs():
-    """``test_sharding.py::test_2d_blocked_distance_matrix``'s sequences."""
-    rng = random.Random(1)
-    seqs = []
-    for _c in range(4):
-        center = rand_seq(rng, 120)
-        for _ in range(4):
-            seqs.append(mutate(rng, center, rng.randrange(1, 6)))
-    seqs = sorted(set(seqs))
-    while len(seqs) % 8:
-        seqs.append(rand_seq(rng, 120))
-    codes, lens = pad_batch(seqs, 256)
-    return seqs, codes, lens
-
-
-def test_nn_round_sharded_2d_matches_jax(nn_seqs):
-    import jax
-    from jax.sharding import Mesh
-
-    _seqs, codes, lens = nn_seqs
-    grid = [[torch.device("cpu")] * 4] * 2
-    got = nn_round_sharded_2d(grid, codes, lens, Wp=128, L=256)
-    mesh2d = Mesh(np.array(jax.devices()[:8]).reshape(2, 4),
-                  ("rows", "cols"))
-    want = np.asarray(jax_nn_round_2d(mesh2d, codes, lens, Wp=128, L=256))
-    assert got.dtype == np.int32
-    np.testing.assert_array_equal(got, want)
-    assert (got < 2 ** 30).any()
-
-
-@pytest.mark.parametrize("n", [3, 8])
-def test_nn_round_sharded_matches_jax(nn_seqs, n):
-    _seqs, codes, lens = nn_seqs
-    N = len(codes)
-    i, j = np.nonzero(~np.eye(N, dtype=bool))
-    args = (codes[i], codes[j], lens[i], lens[j], i.astype(np.int32), N)
-    got = nn_round_sharded(_cpu_mesh(n), *args, Wp=128, L=256)
-    want = np.asarray(jax_nn_round(jax_make_mesh(8), *args, Wp=128, L=256))
-    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
