@@ -6,7 +6,7 @@ pairs (with '-' gaps).
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Set, Tuple
+from typing import Dict, Set, Tuple
 
 import numpy as np
 
@@ -61,8 +61,9 @@ def filter_exon_differences(
 
 def read_errors_from_alignment(ref_aln: str, read_aln: str) -> Tuple[int, int, int]:
     """(insertions, deletions, substitutions) of the read vs the reference,
-    end gap runs excluded (``functions.py:495-522``).  Vectorized: this is
-    called once per read per test edge."""
+    end gap runs excluded (``functions.py:495-522``).  Phase 2's tests take
+    these counts from ``stats/store.py``, which computes them for many
+    alignments in one pass; this is the form for one."""
     a = _bytes(ref_aln)
     b = _bytes(read_aln)
     n = len(a)
@@ -82,46 +83,6 @@ def read_errors_from_alignment(ref_aln: str, read_aln: str) -> Tuple[int, int, i
     dele = int((diff & (bb == _DASH)).sum())
     subs = int(diff.sum()) - ins - dele
     return ins, dele, subs
-
-
-def read_errors_batch(pairs) -> List[Tuple[int, int, int]]:
-    """Batched ``read_errors_from_alignment`` over (ref_aln, read_aln)
-    string pairs: one padded [R, Lmax] byte-matrix pass instead of
-    per-read numpy calls (720k of them were 41 s of a 10k-scale stat
-    profile).  Padding uses '-', which is exactness-preserving: each
-    pair's two strings have equal true length, so padding columns compare
-    equal (no diff contribution) and only extend the excluded end-gap
-    runs."""
-    R = len(pairs)
-    if R == 0:
-        return []
-    Lmax = max(len(a) for a, _b in pairs)
-    A = np.full((R, Lmax), _DASH, dtype=np.uint8)
-    B = np.full((R, Lmax), _DASH, dtype=np.uint8)
-    for k, (a, b) in enumerate(pairs):
-        assert len(a) == len(b)
-        A[k, : len(a)] = _bytes(a)
-        B[k, : len(b)] = _bytes(b)
-    am = A != _DASH
-    bm = B != _DASH
-    anym = am.any(axis=1)
-
-    def lead2(m):
-        # first non-dash column per row (Lmax when all-dash)
-        return np.where(m.any(axis=1), m.argmax(axis=1), Lmax)
-
-    start = np.maximum(lead2(am), lead2(bm))
-    last_a = Lmax - 1 - am[:, ::-1].argmax(axis=1)
-    last_b = Lmax - 1 - bm[:, ::-1].argmax(axis=1)
-    stop = np.where(anym & bm.any(axis=1),
-                    np.minimum(last_a, last_b) + 1, 0)
-    cols = np.arange(Lmax)
-    win = (cols[None, :] >= start[:, None]) & (cols[None, :] < stop[:, None])
-    diff = (A != B) & win
-    ins = (diff & ~am).sum(axis=1)
-    dele = (diff & ~bm).sum(axis=1)
-    subs = diff.sum(axis=1) - ins - dele
-    return [(int(i), int(d), int(s)) for i, d, s in zip(ins, dele, subs)]
 
 
 def alignment_stats(a1: str, a2: str) -> Tuple[int, int, int]:

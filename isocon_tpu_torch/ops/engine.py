@@ -323,6 +323,10 @@ class PairEngine:
             # correct_round``), and those of the other partitions of more
             # than one member, which the host takes
             "consensus_rows_card": 0, "consensus_rows_host": 0,
+            # phase 2's tests: read alignments turned into arrays
+            # (``stats/store.py``), and the (read, edge) uses those arrays
+            # served
+            "stat_rows_built": 0, "stat_rows_used": 0,
         }
 
         # (mode, band width) -> pairs the banded wavefront ran there
@@ -337,13 +341,15 @@ class PairEngine:
             "engine: %d EDs in %.1fs (%d calls, %d full-window, "
             "%d wavefront, %d of them reruns, %.1fs of wavefront waits), "
             "%d alignments in %.1fs (%d calls; %d card rows, "
-            "%d host rows); MAM rows: %d consensus chain, %d host" % (
+            "%d host rows); MAM rows: %d consensus chain, %d host; "
+            "test rows: %d built, %d used" % (
                 c["ed_pairs"], c["ed_seconds"], c["ed_calls"],
                 c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
                 c["wave_pairs_rerun"], c["wave_wait_seconds"],
                 c["align_pairs"], c["align_seconds"], c["align_calls"],
                 c["align_card_rows"], c["align_host_rows"],
                 c["consensus_rows_card"], c["consensus_rows_host"],
+                c["stat_rows_built"], c["stat_rows_used"],
             )
         )
 

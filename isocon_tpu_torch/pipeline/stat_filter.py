@@ -30,6 +30,7 @@ from ..graph.partition import greedy_bipartite_assignment
 from ..io import read_fasta, read_fastx
 from ..io.ccs import CCS, ccs_dict_from_bam, ccs_dict_from_fastq
 from ..io.output import devlog, logger, print_candidates
+from ..stats.store import AlignmentStore
 from ..stats.test import do_statistical_tests_per_edge
 from .alignments import align_pair_list
 
@@ -126,6 +127,8 @@ def stat_filter_candidates(read_file, candidate_file, read_partition,
     realignment_to_avoid_local_max = 0
     modified = True
     highest_significance_values: Dict[str, tuple] = {}
+    # the reads' alignments as the tests read them, each converted once
+    store = AlignmentStore(engine.counters)
 
     while modified:
         modified = False
@@ -240,7 +243,8 @@ def stat_filter_candidates(read_file, candidate_file, read_partition,
         if nr_tests > 0:
             with record_function("isocon_phase2.tests"):
                 new_significance = do_statistical_tests_per_edge(
-                    nn_graph, C, read_partition, ccs_dict, params, engine
+                    nn_graph, C, read_partition, ccs_dict, params, engine,
+                    store,
                 )
             for c_acc in new_significance:
                 for t_acc in new_significance[c_acc]:

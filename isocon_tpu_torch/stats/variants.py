@@ -14,11 +14,9 @@ Re-implements the ``functions.py`` statistical helpers:
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Sequence, Tuple
+from typing import List
 
 import numpy as np
-
-from ..alnutils import read_errors_batch
 
 _DASH = np.uint8(ord("-"))
 
@@ -87,86 +85,92 @@ def _nondash_cumsum(aln: str) -> np.ndarray:
     return np.cumsum(arr != _DASH)
 
 
-def _coord_map(aln: str) -> np.ndarray:
-    """seq position -> alignment column (vectorized: called per read per
-    edge on ~2-4 kb alignment strings)."""
-    arr = np.frombuffer(aln.encode("latin1"), dtype=np.uint8)
-    return np.flatnonzero(arr != _DASH)
-
-
 def get_support(
-    read_alignments_to_c, variant_coords_c, read_alignments_to_t,
-    variant_coords_t, alignment_c_to_t,
+    store, read_alignments_to_c, rows_c, variant_coords_c,
+    read_alignments_to_t, rows_t, variant_coords_t, alignment_c_to_t,
 ) -> List[str]:
     """Reads exactly matching the candidate over every variant window
-    (``functions.py:149-201``)."""
-    support_c = []
-    for read_acc, (aln_c, aln_read, _st) in read_alignments_to_c.items():
-        cmap = _coord_map(aln_c)
-        ok = True
-        for i, (v_type, v_nucl, u_v) in variant_coords_c.items():
-            p = cmap[i]
-            if aln_read[max(0, p - 1) : p + u_v + 1] != aln_c[max(0, p - 1) : p + u_v + 1]:
-                ok = False
-                break
-        if ok:
-            support_c.append(read_acc)
-
-    support_from_t = []
-    for read_acc, (aln_t, aln_read, _st) in read_alignments_to_t.items():
-        tmap = _coord_map(aln_t)
-        ok = True
-        for i, (v_type, v_nucl, u_v) in variant_coords_t.items():
-            p = tmap[i]
-            snippet = alignment_c_to_t[i]
-            if v_type == "I":
-                match = aln_read[max(0, p - 2) : p + u_v] == snippet
-            else:
-                match = aln_read[max(0, p - 1) : p + u_v + 1] == snippet
-            if not match:
-                ok = False
-                break
-        if ok:
-            support_from_t.append(read_acc)
-    return support_c + support_from_t
+    (``functions.py:149-201``): a read of c where its window equals c's
+    window of its own alignment, a read of t where its window equals the
+    c-to-t snippet.  ``rows_*``: the reads' rows in ``store``, in the
+    dicts' order."""
+    ok_c = _supporting(store, rows_c, variant_coords_c)
+    ok_t = _supporting(store, rows_t, variant_coords_t, alignment_c_to_t)
+    return ([acc for acc, ok in zip(read_alignments_to_c, ok_c) if ok]
+            + [acc for acc, ok in zip(read_alignments_to_t, ok_t) if ok])
 
 
-def get_read_errors(read_alignments_to_c, read_alignments_to_t):
-    """``functions.py:204-215``.  Batched: one padded-matrix pass per
-    edge (c-assigned reads overwrite t-assigned ones, as the reference's
-    dict-update order does)."""
+def _supporting(store, rows, variant_coords, snippets=None) -> List[bool]:
+    """For each row, whether every variant's window matches: the read row's
+    slice ``[max(0, p - 1), p + u_v + 1)`` (``[max(0, p - 2), p + u_v)``
+    for an ``I`` against a snippet), p the variant's column, equals the
+    reference row's slice there, or ``snippets[i]``.  One variant at a
+    time over the rows still matching; a slice past the row's end is
+    shorter, as Python slices are."""
+    alive = np.arange(len(rows))
+    for i, (v_type, _v_nucl, u_v) in variant_coords.items():
+        if alive.size == 0:
+            break
+        r = rows[alive]
+        p = store.columns(r, i)
+        if snippets is not None and v_type == "I":
+            lo, hi = np.maximum(p - 2, 0), p + u_v
+        else:
+            lo, hi = np.maximum(p - 1, 0), p + u_v + 1
+        width = np.minimum(hi, store.length[r]) - lo
+        if snippets is None:
+            w = int(width.max())
+        else:
+            want = np.frombuffer(snippets[i].encode("latin1"), np.uint8)
+            w = want.size
+        k = np.arange(w)
+        inside = k < width[:, None]
+        at = store.start[r][:, None] + lo[:, None] + np.where(inside, k, 0)
+        got = store.read[at]
+        if snippets is None:
+            match = ((got == store.ref[at]) | ~inside).all(axis=1)
+        else:
+            match = (width == w) & ((got == want) | ~inside).all(axis=1)
+        alive = alive[match]
+    ok = np.zeros(len(rows), dtype=bool)
+    ok[alive] = True
+    return ok.tolist()
+
+
+def get_read_errors(store, read_alignments_to_c, rows_c,
+                    read_alignments_to_t, rows_t):
+    """``functions.py:204-215``: each read's (insertions, deletions,
+    substitutions) from ``store``, t's reads first (the reference's
+    dict-update order)."""
     keys = list(read_alignments_to_t) + list(read_alignments_to_c)
-    pairs = [(aln, read) for aln, read, _st in
-             read_alignments_to_t.values()]
-    pairs += [(aln, read) for aln, read, _st in
-              read_alignments_to_c.values()]
-    out = read_errors_batch(pairs)
-    return dict(zip(keys, out))
+    errors = store.errors[np.concatenate([rows_t, rows_c])].tolist()
+    return dict(zip(keys, map(tuple, errors)))
 
 
 def get_empirical_error_probabilities(
-    segment_length: int, errors, variant_coords_t
+    segment_length: int, reads, errors: np.ndarray, variant_coords_t
 ):
-    """``functions.py:435-466``."""
-    probability = {}
+    """``functions.py:435-466`` over all reads at once: ``errors`` holds
+    each read's (insertions, deletions, substitutions), a row a read of
+    ``reads``.  The variants multiply in in dict order, so each read's
+    float64 products are the scalar loop's, operation for operation."""
     delta_size = float(len(variant_coords_t))
     assert delta_size > 0.0
-    for read_acc, (insertions, deletions, substitutions) in errors.items():
-        prob = 1.0
-        p_S = (max(substitutions, delta_size) / float(segment_length)) / 3.0
-        p_I = (max(insertions, delta_size) / float(segment_length)) / 4.0
-        p_D = max(deletions, delta_size) / float(segment_length)
-        for i, (v_type, v_nucl, u_v) in variant_coords_t.items():
-            if v_type == "S":
-                prob *= p_S * u_v
-            elif v_type == "I":
-                prob *= min(0.5, p_I * u_v)
-            elif v_type == "D":
-                prob *= min(0.5, p_D * u_v)
-        if prob >= 1.0:
-            prob = 0.99999
-        probability[read_acc] = prob
-    return probability
+    length = float(segment_length)
+    errors = np.asarray(errors, dtype=np.float64).reshape(-1, 3)
+    p_S = (np.maximum(errors[:, 2], delta_size) / length) / 3.0
+    p_I = (np.maximum(errors[:, 0], delta_size) / length) / 4.0
+    p_D = np.maximum(errors[:, 1], delta_size) / length
+    prob = np.ones(len(errors))
+    for v_type, _v_nucl, u_v in variant_coords_t.values():
+        if v_type == "S":
+            prob *= p_S * u_v
+        elif v_type == "I":
+            prob *= np.minimum(0.5, p_I * u_v)
+        elif v_type == "D":
+            prob *= np.minimum(0.5, p_D * u_v)
+    prob[prob >= 1.0] = 0.99999
+    return dict(zip(reads, prob.tolist()))
 
 
 def _error_ratios(errors):
@@ -191,16 +195,17 @@ def _p_error_from_qual(q_qual, max_phred_q_trusted, v_type, u_v, ratios):
 
 
 def get_read_ccs_probabilities_c(
-    read_alignments_to_c, variant_coords_c, alignment_t_to_c, ccs_dict,
-    errors, max_phred_q_trusted,
+    store, read_alignments_to_c, rows_c, variant_coords_c, alignment_t_to_c,
+    ccs_dict, errors, max_phred_q_trusted,
 ):
     """``functions.py:240-331``."""
     ratios = _error_ratios(errors)
     assert len(variant_coords_c) > 0
     probabilities = {}
     non_supportive = set()
-    for read_acc, (aln_c, aln_read, _st) in read_alignments_to_c.items():
-        cmap = _coord_map(aln_c)
+    for (read_acc, (aln_c, aln_read, _st)), row in zip(
+            read_alignments_to_c.items(), rows_c):
+        cmap = store.coord_map(row)
         nd_read = _nondash_cumsum(aln_read)
         prob = 1.0
         for i, (v_type, v_nucl, u_v) in variant_coords_c.items():
@@ -237,16 +242,17 @@ def get_read_ccs_probabilities_c(
 
 
 def get_read_ccs_probabilities_t(
-    read_alignments_to_t, variant_coords_t, alignment_c_to_t, ccs_dict,
-    errors, max_phred_q_trusted,
+    store, read_alignments_to_t, rows_t, variant_coords_t, alignment_c_to_t,
+    ccs_dict, errors, max_phred_q_trusted,
 ):
     """``functions.py:334-432``."""
     ratios = _error_ratios(errors)
     assert len(variant_coords_t) > 0
     probabilities = {}
     non_supportive = set()
-    for read_acc, (aln_t, aln_read, _st) in read_alignments_to_t.items():
-        tmap = _coord_map(aln_t)
+    for (read_acc, (aln_t, aln_read, _st)), row in zip(
+            read_alignments_to_t.items(), rows_t):
+        tmap = store.coord_map(row)
         nd_read = _nondash_cumsum(aln_read)
         prob = 1.0
         for i, (v_type, v_nucl, u_v) in variant_coords_t.items():
