@@ -2465,9 +2465,11 @@ def time_sketch(torch, sk, p, lens, want, clock_mhz, k=20):
       merge's); how many top-k lists differ from K6's is logged.
     Bounds: the function moves p and the lengths in and [N, k] values and
     int64 indices out, and does D fmas and ``SKETCH_OPS_PER_OUTPUT`` a
-    score at the float32 FMA rate; the first pass writes its [N, segments,
-    k] lists instead; the merge moves the lists in and [N, k] out and does a
-    compare a listed pair; the scores entry writes the [N, N] scores.
+    distinct score, N(N - 1)/2 of them (the diagonal excluded, score(i, j)
+    = score(j, i) bit for bit), at the float32 FMA rate; the first pass
+    writes its [N, segments, k] lists instead; the merge moves the lists in
+    and [N, k] out and does a compare a listed pair; the scores entry
+    writes the [N, N] scores.
     Returns ({name: reading} of the three entries and of the fused
     function, "fused"; {name: max abs error})."""
     N, D = p.shape
@@ -2549,7 +2551,7 @@ def time_sketch(torch, sk, p, lens, want, clock_mhz, k=20):
                       int((lib["sketch_scores"][1] != want).sum()), N * N,
                       float((lib["sketch_scores"][1] - want).abs().max())))
     del lib_i
-    ops = float(N) * N * (D + SKETCH_OPS_PER_OUTPUT)
+    ops = float(N) * (N - 1) / 2 * (D + SKETCH_OPS_PER_OUTPUT)
     inputs = N * D * 4 + N * 4
     shape = "N=%d D=%d k=%d segments=%d" % (N, D, k, nseg)
     out = {}

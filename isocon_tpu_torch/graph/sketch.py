@@ -18,6 +18,7 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops.encode import encode_seq
 from ..ops.engine import resolve_device
@@ -47,18 +48,27 @@ def kmer_profile(seq: str, dim: int = DIM, k: int = KMER) -> np.ndarray:
 
 
 def approximate_matches(seqs: Sequence[str], topn: int = TOPN,
-                        device=None) -> List[List[int]]:
+                        device=None, counters=None) -> List[List[int]]:
     """Per sequence, the indices of its topn sketch-similar neighbors,
     scored on ``device`` (default CUDA; ``"cpu"`` runs the plain
-    version)."""
+    version).  ``counters`` (an engine's): the host seconds of the
+    profiles add to its ``sketch_profile_seconds``."""
     n = len(seqs)
     if n <= 1:
         return [[] for _ in seqs]
     dev = resolve_device(device)
-    profiles = torch.from_numpy(np.stack([kmer_profile(s) for s in seqs]))
+    t0 = time.perf_counter()
+    profiles = np.stack([kmer_profile(s) for s in seqs])
+    if counters is not None:
+        counters["sketch_profile_seconds"] += time.perf_counter() - t0
     lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32)
     k = min(topn, n - 1)
-    idx = topn_indices(torch.sqrt(profiles).to(dev), lens.to(dev), k)
+    # numpy's square root, correctly rounded: torch 2.13's CPU build on an
+    # AVX-512 host returned float32 roots good to about 12 bits in some
+    # first calls after other work (sqrt(1) = 1 - 2^-12 on whole blocks of
+    # rows), which moves K6's scores by far more than its chain's rounding
+    roots = torch.from_numpy(np.sqrt(profiles))
+    idx = topn_indices(roots.to(dev), lens.to(dev), k)
     return idx.cpu().tolist()
 
 
@@ -75,14 +85,21 @@ def approximate_nn_graph(
     Same output shape as ``graph.nn.nearest_neighbors``; edges outside
     (edge_min_threshold, edge_max_threshold) are dropped and edges are
     inserted symmetrically, mirroring ``get_best_alignments.py:22-45``.
-    The sketch runs on the engine's device; its rows and seconds add to
-    the engine's ``sketch_rows`` and ``sketch_seconds`` counters.
+    The sketch runs on the engine's device, inside the profiler span
+    ``isocon_phase1.sketch`` (profiles, upload, K6, fetch); its rows,
+    seconds, profile seconds and distinct scores (n(n - 1)/2: a score is
+    symmetric in its two rows) add to the engine's ``sketch_rows``,
+    ``sketch_seconds``, ``sketch_profile_seconds`` and
+    ``sketch_score_cells``, the rescoring pairs to ``sketch_pairs``.
     """
     n = len(unique_seqs)
     t0 = time.perf_counter()
-    cands = approximate_matches(unique_seqs, topn, device=engine.device)
+    with record_function("isocon_phase1.sketch"):
+        cands = approximate_matches(unique_seqs, topn, device=engine.device,
+                                    counters=engine.counters)
     engine.counters["sketch_rows"] += n
     engine.counters["sketch_seconds"] += time.perf_counter() - t0
+    engine.counters["sketch_score_cells"] += n * (n - 1) // 2
     ids = engine.add_seqs(unique_seqs)
     keys = []
     for i in range(n):
@@ -92,6 +109,7 @@ def approximate_nn_graph(
             keys.append((i, j))
     karr = (np.asarray(keys, dtype=np.int64).reshape(-1, 2)
             if keys else np.empty((0, 2), dtype=np.int64))
+    engine.counters["sketch_pairs"] += len(keys)
     eds, _ = engine.edit_distances_idx(ids[karr[:, 0]], ids[karr[:, 1]])
 
     best: List[Dict[int, int]] = [dict() for _ in range(n)]

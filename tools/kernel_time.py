@@ -120,9 +120,10 @@ def readings(cs, torch, np, dev, args):
         for n in (N, cs.SMALLEST_ROUND):
             pn, ln = p[:n].contiguous(), lens[:n].contiguous()
             # p and the lengths in, [n, 20] float32 values and int64
-            # indices out; D fmas and the two subtractions a score
+            # indices out; D fmas and the two subtractions a distinct
+            # score, n(n - 1)/2 of them (a score is symmetric)
             nbytes = n * D * 4 + n * 4 + n * 20 * 12
-            ops = float(n) * n * (D + cs.SKETCH_OPS_PER_OUTPUT)
+            ops = float(n) * (n - 1) / 2 * (D + cs.SKETCH_OPS_PER_OUTPUT)
             fn = lambda: sketch.topn_indices(pn, ln, 20)
             fn()
             ms, _got = cs._time(torch, fn, 5)
