@@ -71,7 +71,8 @@ On one NVIDIA GPU (sm_90a) this script
    the ``"long"`` block of the same file; then ``pipeline --nontargeted``
    on the 10,000 reads of four gene families (104 isoforms), where K6
    scores each phase-1 round and K1 rescores the pairs it names with no
-   cap, against the ``"nontargeted"`` block; each run fails if its
+   cap, against the ``"nontargeted"`` block (K7 launched once a sketch
+   call, for every row); each run fails if its
    engine has ``native_cpu`` set or if its ``max_memory_allocated``
    exceeds ``PEAK_BYTES`` by more than 2%;
 5. times each kernel and its plain version with CUDA events at the main
@@ -89,7 +90,13 @@ On one NVIDIA GPU (sm_90a) this script
    (the scores entry in 4,096-row chunks and a stable sort), in turns, its
    first pass, its merge and the scores entry alone, with their plain
    versions and, as yardsticks only, the library calls (``torch.matmul``
-   without TF32 and ``torch.topk``: ``library_ms``);
+   without TF32 and ``torch.topk``: ``library_ms``); K7 (the sketch's
+   square-rooted k-mer profiles, ``time_kmer_profile``) on job 0 of the
+   benchmark cell ``nontargeted_pipeline`` (10,000 reads, mean ~1,166
+   bases, round 1's shape) and on its first 1,102 reads (a later
+   round's), held bit for bit to its plain version, beside its bytes
+   bound, the plain version's time and the per-read ``kmer_profile`` loop
+   it replaced;
 6. prints one JSON line with the kernels, the card's name and power limit,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -113,6 +120,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_READS = 10000                 # the 10k-read workloads of phase 4
 NONTARGETED_FAMILIES = 4        # gene families of the nontargeted one
 SMALLEST_ROUND = 1102           # its smallest sketch round's unique reads
+KMER_PROFILE_SEED = 2148640001  # K7's timed reads: this seed's job 0
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 SMS = 132
@@ -1401,8 +1409,8 @@ def phase_main_path(torch, _build, dev, long_reads=False,
         assert expect["n_reads"] == N_READS
         assert expect["families"] == NONTARGETED_FAMILIES
         label = "nontargeted pipeline"
-        needed = ("sketch_topn", "sketch_merge", "myers_ed", "affine_fwd",
-                  "affine_walk")
+        needed = ("kmer_profile", "sketch_topn", "sketch_merge", "myers_ed",
+                  "affine_fwd", "affine_walk")
     else:
         assert expect["n_reads"] == N_READS
         label = "10k pipeline"
@@ -1486,10 +1494,11 @@ def phase_main_path(torch, _build, dev, long_reads=False,
             raise AssertionError("%s: max_memory_allocated %d bytes, over "
                                  "%d" % (label, peak, limit))
     if nontargeted:
-        log("sketch: %d rows in %.2f s in phase 1 (K6 launches: %d first "
-            "passes, %d merges, %d of the scores entry), %d rows in phase 2 "
-            "(%d first passes)"
+        log("sketch: %d rows in %.2f s in phase 1 (%.2f s of profiles; K7 "
+            "launches %d; K6 launches: %d first passes, %d merges, %d of "
+            "the scores entry), %d rows in phase 2 (%d first passes)"
             % (phase1["sketch_rows"], phase1["sketch_seconds"],
+               phase1["sketch_profile_seconds"], launches1["kmer_profile"],
                launches1["sketch_topn"], launches1["sketch_merge"],
                launches1["sketch_scores"],
                c["sketch_rows"] - phase1["sketch_rows"],
@@ -1548,6 +1557,14 @@ def phase_main_path(torch, _build, dev, long_reads=False,
                                  % (label, name))
     if nontargeted and launches1["sketch_topn"] <= 0:
         raise AssertionError("%s: K6 was not launched in phase 1" % label)
+    if nontargeted and (
+            launches["kmer_profile"] != launches["sketch_topn"]
+            or c["sketch_profile_card_rows"] != c["sketch_rows"]):
+        raise AssertionError(
+            "%s: K7 launched %d times for %d sketch calls, built %d of %d "
+            "rows" % (label, launches["kmer_profile"],
+                      launches["sketch_topn"], c["sketch_profile_card_rows"],
+                      c["sketch_rows"]))
     both = needed if long_reads else ("myers_ed", "affine_fwd", "affine_walk")
     for name in both:
         if launches1[name] <= 0 or launches2[name] <= 0:
@@ -2578,6 +2595,66 @@ def time_sketch(torch, sk, p, lens, want, clock_mhz, k=20):
     return out, errs
 
 
+def kmer_profile_reads():
+    """Job 0 (seed ``KMER_PROFILE_SEED``) of the benchmark cell
+    ``nontargeted_pipeline``: 10,000 reads of nine gene families, 719-1,985
+    bases (``portbench/configs/multi_family.json``,
+    ``portbench/generator.make_job``)."""
+    from portbench.generator import make_job
+
+    with open(os.path.join(ROOT, "portbench", "configs",
+                           "multi_family.json")) as fh:
+        config = json.load(fh)
+    return make_job(config, KMER_PROFILE_SEED, 0)[1]
+
+
+def time_kmer_profile(torch, np, sk, dev, seqs, clock_mhz, reps=20):
+    """K7 on the reads ``seqs`` (one launch over all N), mean ms of
+    ``reps`` calls after a warm-up (CUDA events), held bit for bit to its
+    plain version (``kmer_profiles_plain``, host clock, once) and to the
+    per-read ``graph/sketch.py::kmer_profile`` stack and its square root
+    (the path K7 replaced, host clock, once).  Bound: the bytes read once
+    (the reads and their offsets) and the rows written once, over 3.35
+    TB/s.  Returns (its reading, the max abs error: 0.0)."""
+    from isocon_tpu_torch.graph.sketch import kmer_profile
+
+    N = len(seqs)
+    off = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in seqs], out=off[1:])
+    raw = torch.from_numpy(np.frombuffer(bytearray("".join(seqs), "ascii"),
+                                         dtype=np.uint8))
+    off = torch.from_numpy(off)
+    t0 = time.perf_counter()
+    want = sk.kmer_profiles_plain(raw, off)
+    t1 = time.perf_counter()
+    loop = np.sqrt(np.stack([kmer_profile(s) for s in seqs]))
+    t2 = time.perf_counter()
+    if not np.array_equal(loop.view(np.int32), want.numpy().view(np.int32)):
+        raise AssertionError("K7 N=%d: the plain version differs from the "
+                             "per-read kmer_profile rows" % N)
+    raw_d, off_d = raw.to(dev), off.to(dev)
+    fn = lambda: sk.kmer_profiles(raw_d, off_d)
+    fn()
+    ms, got = _time(torch, fn, reps)
+    got = got.cpu()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = float((got - want).abs().max())
+    if differ or err:
+        raise AssertionError("K7 N=%d: %d entries differ from the plain "
+                             "version (max abs err %g)" % (N, differ, err))
+    nbytes = raw.numel() + off.numel() * 8 + N * sk.DIM * 4
+    bms, by = bound_ms(nbytes, 0, clock_mhz)
+    shape = "N=%d bases=%d (mean %.1f)" % (N, raw.numel(), raw.numel() / N)
+    log("%-19s %s: kernel %.4f ms, plain %.1f ms, per-read loop %.1f ms, "
+        "bound %.4f ms (%s, %d bytes), %.2fx the bound; equal to the plain "
+        "version on every entry" % ("kmer_profile", shape, ms,
+                                    (t1 - t0) * 1e3, (t2 - t1) * 1e3, bms,
+                                    by, nbytes, ms / bms))
+    return dict(ms=ms, plain_ms=(t1 - t0) * 1e3, loop_ms=(t2 - t1) * 1e3,
+                bound_ms=bms, bound_by=by, bytes=nbytes, shape=shape,
+                library_ms=None), err
+
+
 KERNELS = [
     ("myers_ed", "isocon_tpu_torch/csrc/myers_ed.cu",
      "isocon_tpu/ops/myers_pallas.py:359"),
@@ -2597,6 +2674,9 @@ KERNELS = [
      "isocon_tpu/graph/sketch.py:62"),
     ("sketch_scores", "isocon_tpu_torch/csrc/sketch.cu",
      "isocon_tpu/graph/sketch.py:56"),
+    # the profiles K6 reads, host numpy in the JAX package
+    ("kmer_profile", "isocon_tpu_torch/csrc/sketch.cu",
+     "isocon_tpu/graph/sketch.py:32"),
     # MAM vote and correction, host numpy in the JAX package: the chain of
     # both kernels, under the first one's name and launches
     ("consensus_vote", "isocon_tpu_torch/csrc/consensus.cu",
@@ -2663,7 +2743,8 @@ def main() -> None:
     launches["wavefront_ed"] = long_launches["wavefront_ed"]
     log("launches on the long-read run: %s" % json.dumps(long_launches))
     nt_launches = phase_main_path(torch, _build, dev, nontargeted=True)
-    for kname in ("sketch_topn", "sketch_merge", "sketch_scores"):
+    for kname in ("sketch_topn", "sketch_merge", "sketch_scores",
+                  "kmer_profile"):
         launches[kname] = nt_launches[kname]
     log("launches on the nontargeted run: %s" % json.dumps(nt_launches))
     for kname, err in phase_sharded(torch, np, _build, dev).items():
@@ -2693,6 +2774,13 @@ def main() -> None:
             timing.update(reading)
     del p, lens, want
     torch.cuda.empty_cache()
+    # K7 at round 1's shape and at a later round's (the first 1,102 reads)
+    seqs = kmer_profile_reads()
+    for n in (len(seqs), SMALLEST_ROUND):
+        reading, errs["kmer_profile"] = time_kmer_profile(
+            torch, np, sk, dev, seqs[:n], clock_mhz)
+        if n == len(seqs):
+            timing["kmer_profile"] = reading
 
     kernels = []
     for kname, source, replaces in KERNELS:

@@ -61,6 +61,10 @@
 //   one reversed, then a bitonic merge);
 // - two blocks fit on an SM (98 KB of shared memory, at most 128 registers
 //   a thread), so one block's selection overlaps the other's chain.
+//
+// K7 (isocon_kmer_profile, at the end of this file) builds p itself from
+// the reads' bytes.  Its kernel's name holds no "sketch_": the benchmark's
+// sketch_roofline reads the kernels so named, and counts K6's work alone.
 #include <climits>
 
 #include "isocon_cuda.h"
@@ -440,6 +444,82 @@ bool misaligned(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 != 0;
 }
 
+// ---------------------------------------------------------------------------
+// K7: the square roots of the hashed 8-mer counts, the p that K6 reads.
+//
+// Replaces no TPU kernel: the JAX package counts on the host
+// (isocon_tpu/graph/sketch.py:32 kmer_profile, numpy, a read at a time),
+// as the port did before this kernel.  For read r, the bytes
+// seq[off[r] .. off[r + 1]):
+//
+//   code(c)   = A/a 0, C/c 1, G/g 2, T/t 3, N/n 5, any other byte 4
+//               (ops/encode.py)
+//   key(q)    = the 8 codes from position q folded as key * 5 + code
+//   bucket(q) = ((key(q) * 0x9E3779B97F4A7C15 mod 2^64) >> 40) % 512
+//   out[r][b] = __fsqrt_rn(float(the number of starts q with bucket b))
+//
+// a row of zeros for a read under 8 bases.  The counts are integer atomics
+// in shared memory: an integer sum does not depend on the order of its
+// terms, so every run gives the same row, bit for bit np.sqrt of the
+// float32 counts (ops/sketch.py::kmer_profiles_plain, the plain version).
+//
+// What bounds it on the H100: bytes.  Each base is read once and each row
+// written once: sum(len) + N x 2,048 bytes and the offsets, ~32 MB for
+// 10,000 reads of 1,166 bases, ~10 us at 3.35 TB/s.  So the design moves
+// nothing else: a block a read, its 512 bins in shared memory; the read's
+// codes staged kProfileChunk starts at a time (coalesced byte loads, any
+// read length: the stages walk the read), each thread keying the starts
+// tid, tid + 256, ... of the stage from 8 staged codes; then one coalesced
+// store of the row.
+constexpr int kKmer = 8;
+constexpr int kProfileDim = 512;
+constexpr int kProfileThreads = 256;
+constexpr int kProfileChunk = 8 * kProfileThreads;   // k-mer starts a stage
+constexpr unsigned long long kKmerHash = 0x9E3779B97F4A7C15ull;
+
+__device__ __forceinline__ unsigned letter_code(unsigned c) {
+  switch (c | 0x20u) {       // the lowercase letter; no other byte maps there
+    case 'a': return 0;
+    case 'c': return 1;
+    case 'g': return 2;
+    case 't': return 3;
+    case 'n': return 5;
+    default: return 4;
+  }
+}
+
+__global__ void __launch_bounds__(kProfileThreads)
+kmer_profile_kernel(const unsigned char* __restrict__ seq,
+                    const long long* __restrict__ off,
+                    float* __restrict__ out) {
+  __shared__ int bins[kProfileDim];
+  __shared__ unsigned char codes[kProfileChunk + kKmer - 1];
+  const int tid = threadIdx.x;
+  const long long start = off[blockIdx.x];
+  const long long starts = off[blockIdx.x + 1] - start - (kKmer - 1);
+  for (int b = tid; b < kProfileDim; b += kProfileThreads) bins[b] = 0;
+  for (long long q0 = 0; q0 < starts; q0 += kProfileChunk) {
+    const int n = static_cast<int>(
+        starts - q0 < kProfileChunk ? starts - q0 : kProfileChunk);
+    __syncthreads();           // bins zeroed; the last stage's codes read
+    for (int i = tid; i < n + kKmer - 1; i += kProfileThreads)
+      codes[i] = static_cast<unsigned char>(letter_code(seq[start + q0 + i]));
+    __syncthreads();
+    for (int i = tid; i < n; i += kProfileThreads) {
+      long long key = 0;
+#pragma unroll
+      for (int t = 0; t < kKmer; ++t) key = key * 5 + codes[i + t];
+      const unsigned long long h =
+          static_cast<unsigned long long>(key) * kKmerHash;
+      atomicAdd(&bins[(h >> 40) % kProfileDim], 1);
+    }
+  }
+  __syncthreads();
+  float* row = out + static_cast<size_t>(blockIdx.x) * kProfileDim;
+  for (int b = tid; b < kProfileDim; b += kProfileThreads)
+    row[b] = __fsqrt_rn(__int2float_rn(bins[b]));
+}
+
 }  // namespace
 
 // at: float32 [D, lda], the transposed profiles of rows row0 .. row0 +
@@ -498,5 +578,19 @@ ISOCON_API int isocon_sketch_merge(const void* part_v, const void* part_i,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part_v), static_cast<const int*>(part_i),
       static_cast<float*>(vals), static_cast<long long*>(idx), N, nseg, k);
+  return isocon_launch_status();
+}
+
+// seq: uint8, the reads' ASCII bytes back to back; off: int64 [N + 1], read
+// r's bytes seq[off[r] .. off[r + 1]) (non-decreasing, within seq); out:
+// float32 [N, 512], each read's square-rooted hashed 8-mer counts.  Returns
+// the launch's cudaError_t.
+ISOCON_API int isocon_kmer_profile(const void* seq, const void* off,
+                                   void* out, int N, void* stream) {
+  if (N <= 0) return 0;
+  kmer_profile_kernel<<<N, kProfileThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(seq),
+      static_cast<const long long*>(off), static_cast<float*>(out));
   return isocon_launch_status();
 }

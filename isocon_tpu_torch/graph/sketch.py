@@ -4,10 +4,12 @@ Counterpart of ``isocon_tpu/graph/sketch.py``, the equivalent of the
 reference's dormant minimap path (``minimap_alignment_module.py:146-269``
 + ``get_best_alignments.py:5-119``, reachable only through
 ``graphs.construct_approximate_nearest_neighbor_graph:85-149``): every
-sequence becomes a hashed k-mer count profile, each read's ``TOPN`` best
-sketch scores (shared-k-mer estimate minus the length difference, minimap's
-heap key) name its candidates (``ops/sketch.py``; on the card K6 selects
-them as it scores, and the [N, N] scores are never stored),
+sequence becomes a hashed k-mer count profile (on the card K7 builds every
+read's square-rooted profile from the reads' bytes in one launch), each
+read's ``TOPN`` best sketch scores (shared-k-mer estimate minus the length
+difference, minimap's heap key) name its candidates (``ops/sketch.py``; on
+the card K6 selects them as it scores, and the [N, N] scores are never
+stored),
 and the candidates get exact distances from the engine, keeping only the
 minima per query.
 """
@@ -22,15 +24,15 @@ from torch.profiler import record_function
 
 from ..ops.encode import encode_seq
 from ..ops.engine import resolve_device
-from ..ops.sketch import topn_indices
+from ..ops.sketch import DIM, KMER, kmer_profiles, topn_indices
+from ..parallel import sharding
 
-KMER = 8
-DIM = 512
 TOPN = 20  # matches minimap_alignment_module.py:52 (top-20 heap)
 
 
 def kmer_profile(seq: str, dim: int = DIM, k: int = KMER) -> np.ndarray:
-    """Hashed k-mer count vector (float32 [dim])."""
+    """Hashed k-mer count vector (float32 [dim]), one read at a time: the
+    JAX package's function, kept as the oracle of ``kmer_profiles``."""
     codes = encode_seq(seq).astype(np.int64)
     if len(codes) < k:
         return np.zeros(dim, dtype=np.float32)
@@ -51,24 +53,31 @@ def approximate_matches(seqs: Sequence[str], topn: int = TOPN,
                         device=None, counters=None) -> List[List[int]]:
     """Per sequence, the indices of its topn sketch-similar neighbors,
     scored on ``device`` (default CUDA; ``"cpu"`` runs the plain
-    version).  ``counters`` (an engine's): the host seconds of the
-    profiles add to its ``sketch_profile_seconds``."""
+    versions).  The reads' bytes and offsets go to the device in one
+    pinned copy each, and ``kmer_profiles`` (K7 on a card) writes the
+    square-rooted profiles there, which K6 reads.  ``counters`` (an
+    engine's): the host seconds of the profiles (the join, the uploads and
+    the launch, with no wait for the card) add to its
+    ``sketch_profile_seconds``, the bytes sent to ``upload_bytes``, and on
+    a card the rows to ``sketch_profile_card_rows``."""
     n = len(seqs)
     if n <= 1:
         return [[] for _ in seqs]
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    profiles = np.stack([kmer_profile(s) for s in seqs])
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.fromiter(map(len, seqs), dtype=np.int64, count=n),
+              out=offsets[1:])
+    raw = np.frombuffer(bytearray("".join(seqs), "ascii"), dtype=np.uint8)
+    off_d = sharding.upload(offsets, dev)
+    roots = kmer_profiles(sharding.upload(raw, dev), off_d)
     if counters is not None:
         counters["sketch_profile_seconds"] += time.perf_counter() - t0
-    lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32)
+        counters["upload_bytes"] += raw.nbytes + offsets.nbytes
+        if dev.type == "cuda":
+            counters["sketch_profile_card_rows"] += n
     k = min(topn, n - 1)
-    # numpy's square root, correctly rounded: torch 2.13's CPU build on an
-    # AVX-512 host returned float32 roots good to about 12 bits in some
-    # first calls after other work (sqrt(1) = 1 - 2^-12 on whole blocks of
-    # rows), which moves K6's scores by far more than its chain's rounding
-    roots = torch.from_numpy(np.sqrt(profiles))
-    idx = topn_indices(roots.to(dev), lens.to(dev), k)
+    idx = topn_indices(roots, torch.diff(off_d).to(torch.int32), k)
     return idx.cpu().tolist()
 
 
@@ -86,11 +95,12 @@ def approximate_nn_graph(
     (edge_min_threshold, edge_max_threshold) are dropped and edges are
     inserted symmetrically, mirroring ``get_best_alignments.py:22-45``.
     The sketch runs on the engine's device, inside the profiler span
-    ``isocon_phase1.sketch`` (profiles, upload, K6, fetch); its rows,
+    ``isocon_phase1.sketch`` (the bytes' upload, K7, K6, fetch); its rows,
     seconds, profile seconds and distinct scores (n(n - 1)/2: a score is
     symmetric in its two rows) add to the engine's ``sketch_rows``,
     ``sketch_seconds``, ``sketch_profile_seconds`` and
-    ``sketch_score_cells``, the rescoring pairs to ``sketch_pairs``.
+    ``sketch_score_cells``, the rows K7 built to
+    ``sketch_profile_card_rows``, the rescoring pairs to ``sketch_pairs``.
     """
     n = len(unique_seqs)
     t0 = time.perf_counter()

@@ -30,8 +30,8 @@ SOURCES = ("myers_ed", "affine_sg", "wavefront_ed", "sketch", "consensus")
 LAUNCHES: Dict[str, int] = {"myers_ed": 0, "myers_hw": 0, "affine_fwd": 0,
                             "affine_walk": 0, "wavefront_ed": 0,
                             "sketch_scores": 0, "sketch_topn": 0,
-                            "sketch_merge": 0, "consensus_vote": 0,
-                            "consensus_correct": 0}
+                            "sketch_merge": 0, "kmer_profile": 0,
+                            "consensus_vote": 0, "consensus_correct": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +44,7 @@ _SIGNATURES = {
     "isocon_sketch_scores": [_P] * 4 + [_I] * 6 + [_P],
     "isocon_sketch_topn": [_P] * 4 + [_I] * 5 + [_P],
     "isocon_sketch_merge": [_P] * 4 + [_I] * 3 + [_P],
+    "isocon_kmer_profile": [_P] * 3 + [_I] + [_P],
     "isocon_consensus_vote": [_P] * 7 + [_I] * 2 + [_P],
     "isocon_consensus_correct": [_P] * 10 + [_I] * 2 + [_P],
 }

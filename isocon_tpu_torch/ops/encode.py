@@ -22,10 +22,14 @@ _LUT[ord("n")] = 5
 _REV = {0: "A", 1: "C", 2: "G", 3: "T", 5: "N"}
 
 
+def encode_bytes(raw: np.ndarray) -> np.ndarray:
+    """int8 codes of ASCII bytes (uint8)."""
+    return _LUT[raw]
+
+
 def encode_seq(seq: str) -> np.ndarray:
     """Encode a DNA string to int8 codes."""
-    raw = np.frombuffer(seq.encode("ascii"), dtype=np.uint8)
-    return _LUT[raw]
+    return encode_bytes(np.frombuffer(seq.encode("ascii"), dtype=np.uint8))
 
 
 def decode_seq(codes) -> str:

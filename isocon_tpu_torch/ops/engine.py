@@ -301,12 +301,14 @@ class PairEngine:
             # traceback of the ends-ignored candidate graph, and its time
             "hw_survivors": 0, "hw_traceback_seconds": 0.0,
             # rows the sketch of --nontargeted scored, and its time; of
-            # that time the host's k-mer profiles; the distinct scores a
-            # top-n over every pair weighs (n(n - 1)/2 a call); the pairs
-            # its candidates sent to the exact rescoring
+            # that time the k-mer profiles' (the bytes' join and upload and
+            # K7's launch); the rows whose profiles K7 built on the card;
+            # the distinct scores a top-n over every pair weighs
+            # (n(n - 1)/2 a call); the pairs its candidates sent to the
+            # exact rescoring
             "sketch_rows": 0, "sketch_seconds": 0.0,
-            "sketch_profile_seconds": 0.0, "sketch_score_cells": 0,
-            "sketch_pairs": 0,
+            "sketch_profile_seconds": 0.0, "sketch_profile_card_rows": 0,
+            "sketch_score_cells": 0, "sketch_pairs": 0,
             # parts of ed_seconds and align_seconds: the host clock around
             # each batch's collect (the fetch and its wait for the device),
             # and around each alignment batch's decode loop; the part of
@@ -348,7 +350,8 @@ class PairEngine:
             "%d alignments in %.1fs (%d calls; %d card rows, "
             "%d host rows); MAM rows: %d consensus chain, %d host; "
             "test rows: %d built, %d used; sketch: %d rows in %.1fs "
-            "(%.1fs profiles), %d scores, %d rescoring pairs" % (
+            "(%.1fs profiles, %d rows on the card), %d scores, "
+            "%d rescoring pairs" % (
                 c["ed_pairs"], c["ed_seconds"], c["ed_calls"],
                 c["ed_pairs_full_window"], c["ed_pairs_wavefront"],
                 c["wave_pairs_rerun"], c["wave_wait_seconds"],
@@ -357,8 +360,8 @@ class PairEngine:
                 c["consensus_rows_card"], c["consensus_rows_host"],
                 c["stat_rows_built"], c["stat_rows_used"],
                 c["sketch_rows"], c["sketch_seconds"],
-                c["sketch_profile_seconds"], c["sketch_score_cells"],
-                c["sketch_pairs"],
+                c["sketch_profile_seconds"], c["sketch_profile_card_rows"],
+                c["sketch_score_cells"], c["sketch_pairs"],
             )
         )
 

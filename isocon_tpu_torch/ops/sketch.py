@@ -30,14 +30,22 @@ is for checking the chain on every entry; the main path does not call it.
 Beside each kernel is its plain version: ``sketch_scores_plain``,
 ``sketch_topn_plain`` (``segment_topn_plain`` of the plain scores) and
 ``merge_topn_plain``.
+
+p itself, the square roots of each read's hashed 8-mer counts, is
+``kmer_profiles`` of the reads' bytes: K7 (``csrc/sketch.cu``, launch
+counter ``kmer_profile``) for CUDA tensors, ``kmer_profiles_plain`` for CPU
+tensors; both equal ``np.sqrt`` of the stacked
+``graph/sketch.py::kmer_profile`` rows bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
+from .encode import encode_bytes
 
 ROW_CHUNK = 4096
 DIAG_PENALTY = 1e9
@@ -52,6 +60,13 @@ MAX_SEGMENTS = 32     # the merge kernel holds a row's lists one a lane
 SEGMENT_START_TILES = 0.5
 LONE_BLOCK_RATE = 0.9
 PAD_INDEX = 2 ** 31 - 1   # the column of a pad, whose score is -inf
+# the profiles (K7: csrc/sketch.cu's kKmer, kProfileDim, kKmerHash): k-mers
+# of KMER letters, hashed into DIM buckets by the top bits of a
+# multiplicative hash
+KMER = 8
+DIM = 512
+KMER_HASH = 0x9E3779B97F4A7C15
+HASH_SHIFT = 40
 
 
 def fmaf_plain(acc: torch.Tensor, prod: torch.Tensor) -> torch.Tensor:
@@ -331,3 +346,67 @@ def topn_indices(prof_sqrt: torch.Tensor, lens: torch.Tensor, k: int,
                  chunk: int = ROW_CHUNK) -> torch.Tensor:
     """int64 [N, k]: each row's ``topn`` indices (``topn_scores``)."""
     return topn_scores(prof_sqrt, lens, k, chunk)[1]
+
+
+# ---------------------------------------------------------------------------
+# the profiles (K7) and their plain version
+# ---------------------------------------------------------------------------
+def kmer_profiles_plain(seq_bytes: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: float32 [N, DIM], row r the square roots of the
+    hashed ``KMER``-mer counts of the bytes seq_bytes[offsets[r] ..
+    offsets[r + 1]) (uint8 and int64 [N + 1], CPU tensors), zeros for a
+    read under ``KMER`` bases.  Every read's keys in one pass over the
+    concatenation: a key whose window runs past its read's end is dropped.
+    numpy's square root, correctly rounded: torch 2.13's CPU build on an
+    AVX-512 host returned float32 roots good to about 12 bits in some first
+    calls after other work (sqrt(1) = 1 - 2^-12 on whole blocks of rows)."""
+    off = offsets.numpy()
+    n = off.size - 1
+    counts = np.zeros(n * DIM, dtype=np.int64)
+    width = int(off[-1] - off[0]) - KMER + 1 if n > 0 else 0
+    if width > 0:
+        codes = encode_bytes(seq_bytes.numpy()[off[0]:off[-1]]).astype(
+            np.int64)
+        keys = np.zeros(width, dtype=np.int64)
+        for t in range(KMER):
+            keys = keys * 5 + codes[t:t + width]
+        row = np.repeat(np.arange(n), np.diff(off))[:width]
+        keep = np.arange(width) + KMER <= off[1:][row] - off[0]
+        with np.errstate(over="ignore"):
+            h = keys[keep].astype(np.uint64) * np.uint64(KMER_HASH)
+        bucket = (h >> np.uint64(HASH_SHIFT)) % np.uint64(DIM)
+        counts += np.bincount(row[keep] * DIM + bucket.astype(np.int64),
+                              minlength=n * DIM)
+    return torch.from_numpy(np.sqrt(counts.reshape(n, DIM).astype(
+        np.float32)))
+
+
+def kmer_profiles(seq_bytes: torch.Tensor,
+                  offsets: torch.Tensor) -> torch.Tensor:
+    """float32 [N, DIM]: each read's square-rooted hashed k-mer counts, the
+    ``prof_sqrt`` of ``topn_scores``, from the reads' ASCII bytes back to
+    back (uint8) and their offsets (int64 [N + 1], non-decreasing, within
+    the bytes): one launch of K7 for CUDA tensors, ``kmer_profiles_plain``
+    for CPU tensors."""
+    if seq_bytes.dtype != torch.uint8 or seq_bytes.dim() != 1:
+        raise TypeError("seq_bytes must be uint8 [total]")
+    if offsets.dtype != torch.int64 or offsets.dim() != 1 or \
+            offsets.numel() == 0:
+        raise TypeError("offsets must be int64 [N + 1]")
+    if offsets.device != seq_bytes.device:
+        raise ValueError("profile inputs on mixed devices")
+    if seq_bytes.device.type == "cpu":
+        return kmer_profiles_plain(seq_bytes, offsets)
+    lib = _build.load("sketch")
+    dev = seq_bytes.device
+    N = offsets.numel() - 1
+    out = torch.empty((N, DIM), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    buf, off = seq_bytes.contiguous(), offsets.contiguous()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    _build.launch(dev, "kmer_profile", lib.isocon_kmer_profile,
+                  P(buf.data_ptr()), P(off.data_ptr()), P(out.data_ptr()),
+                  I(N), _stream(dev))
+    return out

@@ -76,7 +76,7 @@ def test_build_table_lists_every_kernel():
     assert set(_build._SIGNATURES) == {
         "isocon_myers_ed", "isocon_myers_hw", "isocon_affine_fwd",
         "isocon_affine_walk", "isocon_wavefront_ed", "isocon_sketch_scores",
-        "isocon_sketch_topn", "isocon_sketch_merge",
+        "isocon_sketch_topn", "isocon_sketch_merge", "isocon_kmer_profile",
         "isocon_consensus_vote", "isocon_consensus_correct"}
     assert len(_build._SIGNATURES["isocon_wavefront_ed"]) == 17
     assert len(_build._SIGNATURES["isocon_sketch_scores"]) == 11
@@ -86,6 +86,11 @@ def test_build_table_lists_every_kernel():
         src = fh.read()
     for entry in ("scores", "topn", "merge"):
         assert "ISOCON_API int isocon_sketch_%s(" % entry in src
+    # K7 beside K6, its kernel's name without the "sketch_" that the
+    # benchmark's sketch_roofline reads
+    assert "ISOCON_API int isocon_kmer_profile(" in src
+    assert "kmer_profile_kernel(" in src
+    assert len(_build._SIGNATURES["isocon_kmer_profile"]) == 5
     assert len(_build._SIGNATURES["isocon_affine_fwd"]) == 20
     assert len(_build._SIGNATURES["isocon_affine_walk"]) == 25
     with open(os.path.join(_build.CSRC, "wavefront_ed.cu")) as fh:
@@ -99,8 +104,8 @@ def test_build_table_lists_every_kernel():
     assert set(_build.LAUNCHES) == {"myers_ed", "myers_hw", "affine_fwd",
                                     "affine_walk", "wavefront_ed",
                                     "sketch_scores", "sketch_topn",
-                                    "sketch_merge", "consensus_vote",
-                                    "consensus_correct"}
+                                    "sketch_merge", "kmer_profile",
+                                    "consensus_vote", "consensus_correct"}
     _build.LAUNCHES["wavefront_ed"] += 1
     _build.reset_launches()
     assert not any(_build.LAUNCHES.values())
@@ -1269,6 +1274,86 @@ def test_sketch_topn_rejects_bad_inputs():
         tsk.merge_topn(vals[:, :2], idx[:, :2], 3)
     with pytest.raises(TypeError):
         tsk.merge_topn(vals[:, :2].double(), idx[:, :2], 4)
+
+
+def _profile_reads(N, seed):
+    """N seeded reads' bytes back to back and their offsets: lengths of
+    719-1,985, every 97th 0-9, every 401st from 5 longer than one of K7's
+    stages (2,048 starts) up to 16,569 and read 2 exactly 16,569; upper-
+    and lowercase, N and IUPAC letters."""
+    rs = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTACGTACGTacgtNnRYKMswbdhv", dtype=np.uint8)
+    lens = rs.integers(719, 1986, N)
+    lens[::97] = rs.integers(0, 10, lens[::97].size)
+    lens[5::401] = rs.integers(2049, 16570, lens[5::401].size)
+    if N > 2:
+        lens[2] = 16569
+    raw = alpha[rs.integers(0, alpha.size, int(lens.sum()))]
+    off = np.zeros(N + 1, dtype=np.int64)
+    np.cumsum(lens, out=off[1:])
+    return torch.from_numpy(raw), torch.from_numpy(off)
+
+
+@pytest.mark.parametrize("N", [1, 2, 63, 2001, 10001])
+def test_kmer_profile_kernel_matches_plain(N):
+    """K7 bit for bit against its plain version on every entry, in one
+    launch; and on offsets into the middle of the buffer."""
+    dev = _card()
+    raw, off = _profile_reads(N, seed=N)
+    want = tsk.kmer_profiles_plain(raw, off)
+    raw_d, off_d = raw.to(dev), off.to(dev)
+    before = _build.LAUNCHES["kmer_profile"]
+    got = tsk.kmer_profiles(raw_d, off_d)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["kmer_profile"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (N, tsk.DIM)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    lo, hi = N // 3, N - N // 4
+    got = tsk.kmer_profiles(raw_d, off_d[lo:hi + 1])
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want[lo:hi].view(torch.int32))
+
+
+def test_kmer_profile_rejects_bad_inputs():
+    dev = _card()
+    raw, off = (x.to(dev) for x in _profile_reads(5, seed=3))
+    with pytest.raises(TypeError, match="uint8"):
+        tsk.kmer_profiles(raw.to(torch.int8), off)
+    with pytest.raises(TypeError, match="int64"):
+        tsk.kmer_profiles(raw, off.to(torch.int32))
+    with pytest.raises(ValueError, match="mixed devices"):
+        tsk.kmer_profiles(raw, off.cpu())
+
+
+def test_approximate_matches_on_card_equal_per_read_roots(tmp_path):
+    """A seeded 2,000-read set: the lists from K7's roots equal those from
+    the per-read ``kmer_profile`` rows (the lists before K7), one launch of
+    K7, K6's first pass and its merge; the engine counters take the rows
+    K7 built and the bytes sent."""
+    from isocon_tpu_torch.graph import sketch as gsk
+    from isocon_tpu_torch.io import read_fasta
+    from isocon_tpu_torch.workload import write_reads
+
+    dev = _card()
+    path = str(tmp_path / "reads.fa")
+    write_reads(path, 2000, families=4)
+    seqs = sorted({s for _a, s in read_fasta(path)})
+    roots = torch.from_numpy(np.sqrt(np.stack(
+        [gsk.kmer_profile(s) for s in seqs]))).to(dev)
+    lens = torch.tensor([len(s) for s in seqs], dtype=torch.int32,
+                        device=dev)
+    want = tsk.topn_indices(roots, lens, gsk.TOPN).cpu().tolist()
+    counters = {"sketch_profile_seconds": 0.0, "upload_bytes": 0,
+                "sketch_profile_card_rows": 0}
+    before = dict(_build.LAUNCHES)
+    got = gsk.approximate_matches(seqs, device="cuda", counters=counters)
+    assert {n: _build.LAUNCHES[n] - before[n] for n in before
+            if _build.LAUNCHES[n] != before[n]} == {
+                "kmer_profile": 1, "sketch_topn": 1, "sketch_merge": 1}
+    assert got == want
+    assert counters["sketch_profile_card_rows"] == len(seqs)
+    assert counters["upload_bytes"] == (sum(len(s) for s in seqs)
+                                        + 8 * (len(seqs) + 1))
 
 
 def test_engine_on_card_launches_before_collecting(monkeypatch):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time K1 / K2 (the banded Myers NW / HW edit distance), K3 (the affine
 forward), K4 (its traceback walk), K5 (the banded wavefront), K6 (the
-sketch scores' top-20) or the consensus chain (MAM vote and correction) of
-one tree of the port on the card.
+sketch scores' top-20), K7 (the sketch's k-mer profiles) or the consensus
+chain (MAM vote and correction) of one tree of the port on the card.
 
 K1 (``--kernel k1``): on ``chip_smoke.myers_batch``'s pairs (L = 2048) at
 win 7 for 262,144 pairs (the engine's ED chunk and the table's shape),
@@ -42,7 +42,14 @@ first round's profiles of the nontargeted run
 1,102 rows (its smallest round's size); with ``--segments S ...`` also
 the first pass alone
 (``sketch_topn``) at each segment count the rows allow, beside
-``plan_segments``' pick.  For each reading the kernel's ms and its bound
+``plan_segments``' pick.  K7 (``--kernel k7``): the tree's
+``ops/sketch.py::kmer_profiles`` on job 0 of the benchmark cell
+``nontargeted_pipeline`` (``chip_smoke.kmer_profile_reads``: N = 10,000,
+mean 1,165 bases, round 1's shape) and on its first 1,102 reads (a later
+round's), with ``chip_smoke.time_kmer_profile``: held to the plain
+version, whose time and the replaced per-read loop's the shape gives; its
+bound is the bytes read and written once.  For each reading the kernel's
+ms and its bound
 with its limiting
 term, as this tree's ``chip_smoke.time_k3`` / ``time_k4`` / ``time_k5``
 (``time_myers`` for K1 / K2) and ``chip_smoke.bound_ms`` compute them;
@@ -138,6 +145,19 @@ def readings(cs, torch, np, dev, args):
                        "N=%d D=%d k=20 segments=%d (plan %d)"
                        % (n, D, nseg, sketch.plan_segments(n, cs.SMS)))
         return
+    if args.kernel == "k7":
+        from isocon_tpu_torch.ops import sketch
+
+        clock_mhz = float(cs.nvidia_smi("clocks.max.sm").split()[0])
+        seqs = cs.kmer_profile_reads()
+        for n in (len(seqs), cs.SMALLEST_ROUND):
+            reading, _err = cs.time_kmer_profile(torch, np, sketch, dev,
+                                                 seqs[:n], clock_mhz)
+            yield "profiles", reading["ms"], reading["bytes"], 0, 0, (
+                "%s; plain %.1f ms, per-read loop %.1f ms"
+                % (reading["shape"], reading["plain_ms"],
+                   reading["loop_ms"]))
+        return
     if args.kernel in ("k1", "k2"):
         from isocon_tpu_torch.ops import myers
 
@@ -219,7 +239,7 @@ def readings(cs, torch, np, dev, args):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6",
-                                         "consensus"),
+                                         "k7", "consensus"),
                     required=True)
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--wp", type=int, nargs="+",
